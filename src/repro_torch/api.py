@@ -1,0 +1,117 @@
+"""``repro_torch.run`` — one dispatcher over the port's engines.
+
+    import repro_torch
+    result = repro_torch.run(problem, key, engine="scan",
+                             options=repro_torch.RanlOptions(num_rounds=50))
+
+The same options record and the same engine-compatibility checks as the
+reference's ``repro.run``, plus the port's own rules:
+
+* the run happens on ``device`` (``None`` = the CUDA card, raising when
+  there is none; ``"cpu"`` is the explicit opt-in), and the problem's
+  tensors must already be there — nothing moves silently;
+* engines and options whose port is still to come raise
+  ``NotImplementedError`` naming the ROADMAP item that brings them; the
+  run never falls back to something else.
+"""
+
+from __future__ import annotations
+
+from . import prng
+from .core.options import RanlOptions
+from .core.ranl import RanlResult, _run_reference, _run_scan  # noqa: F401
+from .device import resolve_device
+
+ENGINES = ("scan", "batch", "sharded", "sharded2d", "reference")
+_MESH_REQUIRED = ("sharded", "sharded2d")
+
+# what is not ported yet -> the ROADMAP (Queue 1) item that ports it
+_NOT_YET = {
+    "batch": "item 8 (batch engine)",
+    "sharded": "item 12 (1-D sharded engine)",
+    "sharded2d": "item 13 (2-D engine)",
+    "compression": "item 9 (compression)",
+    "hessian_rank": "item 9 (low-rank [H]_mu init)",
+    "quorum": "item 10 (quorum rounds)",
+    "controller": "item 10 (closed-loop controllers)",
+    "hierarchy": "item 11 (hierarchy)",
+    "overlap": "item 12 (overlapped sharded rounds)",
+    "journal": "item 15 (observability)",
+}
+
+
+def _not_yet(what: str, detail: str = ""):
+    return NotImplementedError(
+        f"{what}{detail} is not ported yet: ROADMAP Queue 1 "
+        f"{_NOT_YET[what]}")
+
+
+def _resolve(engine, options, mesh, controller, overrides):
+    """Shared validation -> (options, controller)."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r} "
+                         f"(expected one of {ENGINES})")
+    if engine in _NOT_YET:
+        raise _not_yet(engine, " engine")
+    opts = RanlOptions() if options is None else options
+    if not isinstance(opts, RanlOptions):
+        raise TypeError(f"options must be a RanlOptions, got {opts!r}")
+    if overrides:
+        opts = opts.merged(**overrides)
+    if mesh is not None:
+        raise ValueError(f"engine {engine!r} takes no mesh — the "
+                         f"sharded engines are {_MESH_REQUIRED}")
+    for name in ("overlap", "compression", "hessian_rank", "hierarchy"):
+        if getattr(opts, name) not in (None, False):
+            raise _not_yet(name, f"={getattr(opts, name)!r}")
+    if opts.quorum is not None:
+        raise _not_yet("quorum", f"={opts.quorum!r}")
+    if engine == "reference":
+        if opts.curvature != "dense":
+            raise ValueError("the reference engine is the dense-eigh "
+                             "oracle — curvature='diag' has no host-loop "
+                             "form")
+        if opts.projection == "ns":
+            raise ValueError("the reference engine is the dense-eigh "
+                             "oracle — projection='ns' has no host-loop "
+                             "form")
+    if isinstance(controller, str):
+        raise _not_yet("controller", f" spec {controller!r}")
+    return opts, controller
+
+
+def _check_device(problem, device):
+    dev = resolve_device(device)
+    for t in problem.tensors():
+        if t.device.type != dev.type or (
+                dev.index is not None and t.device.index != dev.index):
+            raise ValueError(
+                f"the problem's tensors are on {t.device}, the run asks "
+                f"for {dev}; build the problem on that device")
+
+
+def run(problem, key, *, engine: str = "scan",
+        options: RanlOptions | None = None, device=None, mesh=None,
+        controller=None, cost=None, journal=None,
+        **overrides) -> RanlResult:
+    """Run Algorithm 1 on ``problem`` with the chosen engine.
+
+    ``key``: a ``repro_torch.prng`` key (uint32 (2,)).  ``controller``: a
+    controller object or ``None`` (the options' policy); ``cost``: a
+    ``CostModel`` on the problem's device or ``None`` (uniform).
+    ``**overrides`` are ``RanlOptions`` fields merged into ``options``.
+    """
+    opts, controller = _resolve(engine, options, mesh, controller,
+                                overrides)
+    if journal is not None:
+        raise _not_yet("journal", "=")
+    _check_device(problem, device)
+    key = prng.as_key(key)
+    if key.shape != (2,):
+        raise ValueError(f"run takes one key of shape (2,), got "
+                         f"{key.shape}")
+    if engine == "scan":
+        return _run_scan(problem, key, opts, controller=controller,
+                         cost=cost)
+    return _run_reference(problem, key, opts, controller=controller,
+                          cost=cost)

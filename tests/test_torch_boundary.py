@@ -1,0 +1,136 @@
+"""The port's package boundary: it never imports the reference package or
+its framework, it runs with them made unimportable, its entry points
+refuse to fall back to the CPU, and options whose port is still to come
+raise NotImplementedError."""
+
+import ast
+import importlib
+import os
+import pkgutil
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch import prng  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "src", "repro_torch")
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_module_imports_the_reference_or_its_framework(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_every_module_imports_without_triton_or_a_card():
+    names = [m.name for m in pkgutil.walk_packages([PKG], "repro_torch.")]
+    assert "repro_torch.kernels.region_aggregate" in names
+    for name in names:
+        importlib.import_module(name)
+
+
+def test_runs_with_the_reference_and_its_framework_poisoned():
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None
+        import repro_torch
+        from repro_torch import prng
+        p = repro_torch.make_quadratic(prng.PRNGKey(0), num_workers=4,
+                                       dim=16, num_regions=4, device="cpu")
+        r = repro_torch.run(p, prng.PRNGKey(1), device="cpu", num_rounds=3,
+                            num_regions=4, curvature="diag")
+        assert r.xs.shape == (5, 16) and r.tau_star >= 0
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _small(device="cpu"):
+    return repro_torch.make_quadratic(prng.PRNGKey(0), num_workers=4, dim=8,
+                                      num_regions=2, device=device)
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.make_quadratic(prng.PRNGKey(0), num_workers=2, dim=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.make_logistic(prng.PRNGKey(0), num_workers=2,
+                                  per_worker=4, dim=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.run(_small(), prng.PRNGKey(1), num_rounds=1)
+
+
+def test_run_refuses_a_problem_on_another_device():
+    with pytest.raises(ValueError, match="problem"):
+        repro_torch.run(_small(), prng.PRNGKey(1), device="cuda",
+                        num_rounds=1)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(engine="batch"), dict(engine="sharded"), dict(engine="sharded2d"),
+    dict(compression="int8"), dict(quorum=0.75), dict(hessian_rank=2),
+    dict(hierarchy="pods=2,period=1"), dict(overlap=True),
+    dict(journal="run.jsonl"), dict(controller="resource:keep_prob=0.5")],
+    ids=str)
+def test_options_outside_the_slice_raise_not_implemented(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        repro_torch.run(_small(), prng.PRNGKey(1), device="cpu",
+                        num_rounds=1, num_regions=2, **kw)
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(engine="warp"), ValueError),
+    (dict(engine="reference", curvature="diag"), ValueError),
+    (dict(engine="reference", projection="ns"), ValueError),
+    (dict(mesh="mesh"), ValueError),
+    (dict(options="fast"), TypeError),
+    (dict(bogus=1), TypeError)], ids=str)
+def test_dispatch_checks_match_the_reference(kw, err):
+    with pytest.raises(err):
+        repro_torch.run(_small(), prng.PRNGKey(1), device="cpu",
+                        num_rounds=1, num_regions=2, **kw)
+
+
+def test_run_takes_one_key_and_interop_validates():
+    from repro_torch import interop
+    with pytest.raises(ValueError):
+        repro_torch.run(_small(), prng.split(prng.PRNGKey(1), 2),
+                        device="cpu", num_rounds=1, num_regions=2)
+    with pytest.raises(ValueError):
+        interop.problem_from_arrays("svm", {}, {}, device="cpu")
+    with pytest.raises(ValueError):
+        interop.key_from_numpy(np.zeros((2, 2), np.uint32))
