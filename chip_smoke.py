@@ -10,12 +10,13 @@ on the card and times both, then drives the port's main path through
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. kernels against their plain versions at (N, D) = (32, 2²²+37),
-   (7, 513) and (1, 1) with random, all-false and all-true masks
-   (C′ bit-equal; ḡ and x′ within rtol 1e-5, atol 1e-6 — the N-sum runs
-   in another order); times at the main path's shapes and at (32, 2²²);
+   (7, 513), (1, 1) and the main path's shapes, with random, all-false
+   and all-true masks (C′ bit-equal; ḡ and x′ within rtol 1e-5, atol
+   1e-6 — the N-sum runs in another order); times at the main path's
+   shapes and at (32, 2²²);
 3. dense main path: quadratic, N=32, d=8192, κ=1e3, 64 regions, 30
    rounds (dist² must fall by 1e-6 — the condition-independent rate of
-   homogeneous workers);
+   homogeneous workers), held against the same run on the plain path;
 4. diag main path: logistic, N=32, 4096 samples per worker, d=4096, 30
    rounds through the fused ``ranl_update`` kernel, held against the same
    run on the plain path (``use_kernel=False``) on the card;
@@ -23,7 +24,10 @@ on the card and times both, then drives the port's main path through
    and the card against the CPU at a small size.
 
 Launch counts are set to 0 just before each main-path run and read just
-after.  TF32 is switched off for matmuls and cuDNN, so every product runs
+after.  A kernel's ``ms`` is its time on the card: a CUDA graph of
+back-to-back calls, replayed, over enough input sets that they do not
+stay in L2.  ``call_ms`` is one call as a caller sees it, host launch
+included.  Kernels compile into ``build/triton/`` beside this script.  TF32 is switched off for matmuls and cuDNN, so every product runs
 in full float32.  Prints the kernels' JSON line, then, last,
 ``{"ok": true, "device": {...}}``; exits non-zero, with no result line,
 when there is no CUDA device, the package is missing, or any phase fails.
@@ -44,6 +48,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published HBM3 rate
+L2_BYTES = 50 << 20              # H100 L2
 TIMED_CALLS = 20
 KERNEL_SOURCE = "src/repro_torch/kernels/region_aggregate.py"
 REPLACES = {"region_aggregate": "src/repro/kernels/region_aggregate.py:75",
@@ -90,21 +95,49 @@ def calls(name):
                                                       lr=lr))
 
 
-def median_ms(torch, fn, args, flush):
-    """Median of single-call CUDA-event times; the L2 is flushed before
-    each call, as a round finds most of its inputs out of cache."""
+def event_ms(torch, fn):
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def call_ms(torch, fn, args, flush):
+    """Median of single-call CUDA-event times, the host's launch included;
+    the L2 is flushed before each call."""
     for _ in range(3):
         fn(*args)
     times = []
     for _ in range(TIMED_CALLS):
         flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn(*args)
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(event_ms(torch, lambda: fn(*args)))
+    return statistics.median(times)
+
+
+def device_ms(torch, fn, arg_sets):
+    """Time on the card of one call: a CUDA graph of back-to-back calls,
+    cycling through ``arg_sets`` (each set is out of L2 when its turn
+    comes), replayed ``TIMED_CALLS`` times; the median replay over the
+    calls in it."""
+    calls_per_replay = max(len(arg_sets), 4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in arg_sets:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls_per_replay):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    times = [event_ms(torch, graph.replay) / calls_per_replay
+             for _ in range(TIMED_CALLS)]
+    del graph
     return statistics.median(times)
 
 
@@ -120,7 +153,8 @@ def phase_kernels(torch, report):
     for name in ("region_aggregate", "ranl_update"):
         kern, plain = calls(name)
         worst = 0.0
-        for n, d in ((32, (1 << 22) + 37), (7, 513), (1, 1)):
+        for n, d in ((32, (1 << 22) + 37), (7, 513), (1, 1),
+                     MAIN_SHAPE[name]):
             for mk in ("random", "all_false", "all_true"):
                 args = make_inputs(torch, n, d, mk, gen)
                 out_k, out_p = kern(*args), plain(*args)
@@ -137,20 +171,28 @@ def phase_kernels(torch, report):
         log(f"{name}: matches its plain version (C' bit-equal, "
             f"max |err| {worst:.3e})")
 
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
     for name in ("region_aggregate", "ranl_update"):
         kern, plain = calls(name)
         for label, (n, d) in (("", MAIN_SHAPE[name]), ("_large", LARGE_SHAPE)):
-            args = make_inputs(torch, n, d, "random", gen)
-            ms = median_ms(torch, kern, args, flush)
-            plain_ms = median_ms(torch, plain, args, flush)
-            bound_ms = kernel_bytes(name, n, d) / HBM_BYTES_PER_S * 1e3
-            report[name].update({f"ms{label}": ms, f"plain_ms{label}": plain_ms,
-                                 f"bound_ms{label}": bound_ms,
-                                 f"shape{label}": [n, d]})
-            log(f"{name} at {n}x{d}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms = {kernel_bytes(name, n, d)} B at "
-                f"3.35 TB/s)")
+            nbytes = kernel_bytes(name, n, d)
+            sets = [make_inputs(torch, n, d, "random", gen)
+                    for _ in range(min(64, -(-2 * L2_BYTES // nbytes)))]
+            row = {f"ms{label}": device_ms(torch, kern, sets),
+                   f"plain_ms{label}": device_ms(torch, plain, sets),
+                   f"call_ms{label}": call_ms(torch, kern, sets[0], flush),
+                   f"plain_call_ms{label}": call_ms(torch, plain, sets[0],
+                                                    flush),
+                   f"bound_ms{label}": nbytes / HBM_BYTES_PER_S * 1e3,
+                   f"shape{label}": [n, d]}
+            report[name].update(row)
+            log(f"{name} at {n}x{d}: on the card {row[f'ms{label}']:.5f} ms "
+                f"(plain {row[f'plain_ms{label}']:.5f} ms) over {len(sets)} "
+                f"input sets; one call {row[f'call_ms{label}']:.5f} ms "
+                f"(plain {row[f'plain_call_ms{label}']:.5f} ms); bound "
+                f"{row[f'bound_ms{label}']:.5f} ms = {nbytes} B at 3.35 TB/s")
+            del sets
+            torch.cuda.empty_cache()
 
 
 def sync_time(torch, fn):
@@ -187,6 +229,23 @@ def main_path_run(torch, rt, problem, key, launches, **opts):
     return res, secs, counts
 
 
+def same_run(torch, res, plain, label, atol):
+    """Hold a kernel run against the same run on the plain path: integer
+    traces equal, xs within rtol 1e-4 and ``atol`` (ḡ sums the N rows in
+    another order, and the step carries that rounding on).  Returns the
+    largest |xs − plain xs|."""
+    for f in ("coverage", "comm_floats", "max_stale", "round_time",
+              "comm_bytes"):
+        if not torch.equal(getattr(res, f), getattr(plain, f)):
+            raise AssertionError(f"{label} kernel vs plain: {f} differs")
+    if (res.tau_star, res.tau_covered) != (plain.tau_star, plain.tau_covered):
+        raise AssertionError(f"{label} kernel vs plain: tau differs")
+    err = (res.xs - plain.xs).abs().max().item()
+    if not torch.allclose(res.xs, plain.xs, rtol=1e-4, atol=atol):
+        raise AssertionError(f"{label} kernel vs plain: xs max |err| {err}")
+    return err
+
+
 def phase_dense(torch, rt, report, launches):
     from repro_torch import prng
     T = 30
@@ -209,14 +268,17 @@ def phase_dense(torch, rt, report, launches):
         raise AssertionError(f"dist_sq fell only from {d0:.3e} to {dT:.3e}")
     if counts != {"region_aggregate": T, "ranl_update": 0}:
         raise AssertionError(f"dense path launches {counts}")
+    xs_err = same_run(torch, res, rt.run(
+        problem, prng.PRNGKey(1), use_kernel=False, num_rounds=T,
+        num_regions=64, policy=pol), "dense", atol=1e-5)
     per_round_ms = (total_s - init_s) / T * 1e3
     report["dense"] = {"init_s": init_s, "round_ms": per_round_ms,
                        "total_s": total_s, "dist_sq_0": d0,
                        "dist_sq_T": dT, "tau_star": res.tau_star,
-                       "launches": counts}
+                       "xs_vs_plain_max_abs": xs_err, "launches": counts}
     log(f"dense: init {init_s:.2f} s, {per_round_ms:.3f} ms/round, "
-        f"dist_sq {d0:.4e} -> {dT:.4e}, tau_star {res.tau_star}, "
-        f"launches {counts}")
+        f"dist_sq {d0:.4e} -> {dT:.4e}, tau_star {res.tau_star}; kernel vs "
+        f"plain xs max |err| {xs_err:.3e}; launches {counts}")
     del problem, res
     torch.cuda.empty_cache()
 
@@ -241,16 +303,9 @@ def phase_diag(torch, rt, report, launches):
     l0, l1, lT = (float(res.losses[i]) for i in (0, 1, -1))
     if not lT < l0:
         raise AssertionError(f"loss did not fall below x0's: {l0} -> {lT}")
-    plain = rt.run(problem, prng.PRNGKey(1), use_kernel=False, **opts)
-    for f in ("coverage", "comm_floats", "max_stale", "round_time",
-              "comm_bytes"):
-        if not torch.equal(getattr(res, f), getattr(plain, f)):
-            raise AssertionError(f"diag kernel vs plain: {f} differs")
-    if (res.tau_star, res.tau_covered) != (plain.tau_star, plain.tau_covered):
-        raise AssertionError("diag kernel vs plain: tau differs")
-    if not torch.allclose(res.xs, plain.xs, rtol=1e-4, atol=1e-6):
-        raise AssertionError("diag kernel vs plain: xs beyond rtol 1e-4")
-    xs_err = (res.xs - plain.xs).abs().max().item()
+    xs_err = same_run(torch, res, rt.run(
+        problem, prng.PRNGKey(1), use_kernel=False, **opts), "diag",
+        atol=1e-6)
     per_round_ms = (total_s - init_s) / T * 1e3
     report["diag"] = {"init_s": init_s, "round_ms": per_round_ms,
                       "total_s": total_s, "loss_0": l0, "loss_1": l1,
@@ -261,7 +316,7 @@ def phase_diag(torch, rt, report, launches):
         f"{l0:.5f} -> {l1:.5f} (x1) -> {lT:.5f} (x_T), loss(x*) "
         f"{report['diag']['loss_star']:.5f}; kernel vs plain xs max |err| "
         f"{xs_err:.3e}; launches {counts}")
-    del problem, res, plain
+    del problem, res
     torch.cuda.empty_cache()
 
 
@@ -323,8 +378,10 @@ def kernels_line(report, launches):
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": "bytes", "library_ms": None,
+                     "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
                      "shape": r["shape"], "ms_large": r["ms_large"],
                      "plain_ms_large": r["plain_ms_large"],
+                     "call_ms_large": r["call_ms_large"],
                      "bound_ms_large": r["bound_ms_large"],
                      "shape_large": r["shape_large"]})
     return json.dumps({"kernels": rows})
@@ -344,6 +401,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is missing ({e})", file=sys.stderr)
         return 2
+    os.environ["TRITON_CACHE_DIR"] = os.path.join(HERE, "build", "triton")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off for matmuls and cuDNN: products run in full float32")

@@ -12,23 +12,17 @@ The quorum aggregation arrives with ROADMAP Queue 1 item 10.
 
 from __future__ import annotations
 
-import torch
+from ..kernels import ops, ref
 
 
 def server_aggregate(grads, masks_x, memory, *, use_kernel: bool = False):
     """grads, memory: (N, d) f32; masks_x: (N, d) bool.
     Returns (global_grad (d,), new_memory (N, d)).
 
-    Plain torch by default; ``use_kernel=True`` routes to the
-    ``region_aggregate`` kernel dispatch (the hand-written kernel for a
-    CUDA tensor, its plain twin for a CPU tensor)."""
+    Plain torch by default (``kernels.ref.region_aggregate_ref``);
+    ``use_kernel=True`` routes to the ``region_aggregate`` kernel dispatch
+    (the hand-written kernel for a CUDA tensor, its plain twin for a CPU
+    tensor)."""
     if use_kernel:
-        from ..kernels.ops import region_aggregate
-        return region_aggregate(grads, masks_x, memory)
-    m = masks_x.to(grads.dtype)
-    count = m.sum(dim=0)                                   # (d,)
-    fresh_mean = (grads * m).sum(dim=0) / torch.clamp_min(count, 1.0)
-    stale_mean = memory.sum(dim=0) / memory.shape[0]       # 1/N ∑ C_i
-    global_grad = torch.where(count > 0, fresh_mean, stale_mean)
-    new_memory = torch.where(masks_x, grads, memory)
-    return global_grad, new_memory
+        return ops.region_aggregate(grads, masks_x, memory)
+    return ref.region_aggregate_ref(grads, masks_x, memory)

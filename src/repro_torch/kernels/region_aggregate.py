@@ -23,21 +23,18 @@ instead of the Pallas wrapper's f32 cast.  The grid needs no padding:
 masked loads and stores handle the ragged edge of D.
 
 Triton is imported, and the kernels are compiled, on the first launch;
-the module itself imports on hosts without Triton or a GPU.
+the module itself imports on hosts without Triton or a GPU.  Compiled
+kernels go to Triton's cache (``TRITON_CACHE_DIR``, else its default).
 """
 
 from __future__ import annotations
 
 import functools
-import os
-from pathlib import Path
 
 import torch
 
 # Launch counts, bumped only where a kernel is launched.
 LAUNCHES = {"region_aggregate": 0, "ranl_update": 0}
-
-_CACHE_DIR = Path(__file__).resolve().parents[3] / "build" / "triton"
 
 
 def reset_launches():
@@ -81,7 +78,6 @@ def _aggregate_kernel(g_ptr, m_ptr, c_ptr, out_c_ptr, out_ptr, x_ptr, h_ptr,
 @functools.cache
 def _kernel():
     """Import Triton and wrap the kernel body (once per process)."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(_CACHE_DIR))
     import triton
     import triton.language
 

@@ -208,16 +208,3 @@ def test_controller_object_and_default_policy_shim():
     with pytest.raises(TypeError):
         repro_torch.run(tp, TKEY, device="cpu", num_rounds=1,
                         controller=object())
-
-
-@pytest.mark.parametrize("curvature", ["dense", "diag"])
-def test_round_stage_breakdown_runs_on_the_host(curvature):
-    """The profiling CLI re-runs the scan engine's round stage by stage."""
-    from repro_torch.launch import trace_rounds
-    tp = carry(quad())
-    opts = repro_torch.RanlOptions(num_regions=6, curvature=curvature)
-    stages = trace_rounds.stage_ms(tp, TKEY, opts, 2, "cpu")
-    step = "ranl_update" if curvature == "diag" else "cholesky step"
-    assert {"masks", "gradients", "telemetry", step} <= set(stages)
-    init_ms, round_ms = trace_rounds.run_ms(tp, TKEY, opts, 2, "cpu")
-    assert init_ms > 0 and np.isfinite(round_ms)

@@ -98,6 +98,19 @@ def test_cpu_dispatch_takes_plain_version_and_counts_no_launch():
     assert dict(LAUNCHES) == before
 
 
+@pytest.mark.parametrize("kind", MASKS)
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_server_aggregate_runs_the_plain_version_on_the_host(use_kernel,
+                                                             kind):
+    """Both routes of the engine's aggregation reach the one plain
+    definition for CPU tensors, bit for bit."""
+    from repro_torch.core.aggregation import server_aggregate
+    g, m, c, _, _ = _t(*_inputs(5, 77, kind))
+    got = server_aggregate(g, m, c, use_kernel=use_kernel)
+    want = ref.region_aggregate_ref(g, m, c)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_kernel_wrappers_reject_what_the_kernel_does_not_take():
     g, m, c, x, h = _t(*_inputs(3, 40, "random"))
     with pytest.raises(ValueError, match="CUDA"):
@@ -117,7 +130,7 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", MASKS)
-@pytest.mark.parametrize("n,d", SHAPES + [(32, 4096), (32, (1 << 16) + 37)])
+@pytest.mark.parametrize("n,d", SHAPES + [(32, 4096), (32, 8192), (32, (1 << 16) + 37)])
 def test_triton_kernels_match_plain_on_card(cuda, n, d, kind):
     g, m, c, x, h = _t(*_inputs(n, d, kind), device=cuda)
     before = dict(LAUNCHES)
