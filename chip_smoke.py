@@ -3,32 +3,55 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written Triton kernels from the sources under
-``src/repro_torch/kernels/``, holds each against its plain PyTorch version
-on the card and times both, then drives the port's main path through
-``repro_torch.run`` at full width:
+Builds the hand-written kernels from the sources in the checkout (the
+Triton K1/K2 under ``src/repro_torch/kernels/``, the CUDA C++ K3/K4 under
+``src/repro_torch/csrc/``), holds each against its plain PyTorch version on
+the card and times both, then drives the port's paths at full width:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. kernels against their plain versions at (N, D) = (32, 2²²+37),
+2. build: ``nvcc`` on each CUDA source, all started together, into
+   ``build/kernels/`` (registers and spills from ``-Xptxas -v``);
+3. kernels (K1/K2) against their plain versions at (N, D) = (32, 2²²+37),
    (7, 513), (1, 1) and the main path's shapes, with random, all-false
    and all-true masks (C′ bit-equal; ḡ and x′ within rtol 1e-5, atol
    1e-6 — the N-sum runs in another order); times at the main path's
    shapes and at (32, 2²²);
-3. dense main path: quadratic, N=32, d=8192, κ=1e3, 64 regions, 30
+4. kernels (K3/K4) against their plain twins: flash attention at
+   phi4-mini's prefill (4, 1024, 24, 8, 128) in bf16, at a ragged S, with
+   a window, in f32 at hd 64 and with one kv head; the wkv recurrence at
+   rwkv6-3b's prefill (4, 1024, 40, 64), its decode (4, 1, 40, 64) and a
+   ragged (1, 37, 3, 64) from a non-zero state.  Tolerances are those of
+   tests/test_kernels.py (2e-4 f32, 2e-2 bf16 for K3; 2e-4 for K4): the
+   sums run in another order.  Times at the serve shapes, beside the
+   bound and, for K3, ``scaled_dot_product_attention``'s time;
+5. dense main path: quadratic, N=32, d=8192, κ=1e3, 64 regions, 30
    rounds (dist² must fall by 1e-6 — the condition-independent rate of
    homogeneous workers), held against the same run on the plain path;
-4. diag main path: logistic, N=32, 4096 samples per worker, d=4096, 30
+6. diag main path: logistic, N=32, 4096 samples per worker, d=4096, 30
    rounds through the fused ``ranl_update`` kernel, held against the same
    run on the plain path (``use_kernel=False``) on the card;
-5. scan engine against the reference engine on the card (N=16, d=1024),
-   and the card against the CPU at a small size.
+7. scan engine against the reference engine on the card (N=16, d=1024),
+   and the card against the CPU at a small size;
+8. serve_rwkv / serve_dense: ``repro_torch.launch.serve.generate`` on
+   rwkv6-3b and phi4-mini-3.8b at full width and depth in bf16 (random
+   weights from a seed), batch 4, a 1024-token bigram prompt, 32 new
+   tokens: prefill seconds and warm decode ms per token; K4 must launch
+   32 × (1 + 31) times, K3 32 times;
+9. serve_consistent: both configs at full width in f32, teacher-forced
+   prefill (192 tokens) then decode to 256 against the full forward
+   (2e-3 prefill, 3e-3 decode, as tests/test_models.py);
+10. models_card_vs_host: both configs at full width cut to 2 layers,
+   batch 1, 128 tokens, f32: logits on the card (kernels) against the
+   CPU (plain twins), within 1e-3 (f32 sums in another order over
+   3000–9000-wide products and 128 recurrence steps).
 
 Launch counts are set to 0 just before each main-path run and read just
 after.  A kernel's ``ms`` is its time on the card: a CUDA graph of
 back-to-back calls, replayed, over enough input sets that they do not
 stay in L2.  ``call_ms`` is one call as a caller sees it, host launch
-included.  Kernels compile into ``build/triton/`` beside this script.  TF32 is switched off for matmuls and cuDNN, so every product runs
-in full float32.  Prints the kernels' JSON line, then, last,
+included.  Triton kernels compile into ``build/triton/`` beside this
+script.  TF32 is switched off for matmuls and cuDNN, so every f32 product
+runs in full float32.  Prints the kernels' JSON line, then, last,
 ``{"ok": true, "device": {...}}``; exits non-zero, with no result line,
 when there is no CUDA device, the package is missing, or any phase fails.
 """
@@ -48,11 +71,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published HBM3 rate
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 L2_BYTES = 50 << 20              # H100 L2
 TIMED_CALLS = 20
-KERNEL_SOURCE = "src/repro_torch/kernels/region_aggregate.py"
+KERNELS = ("region_aggregate", "ranl_update", "flash_attention", "rwkv_wkv")
+ZERO = {name: 0 for name in KERNELS}
+SOURCES = {"region_aggregate": "src/repro_torch/kernels/region_aggregate.py",
+           "ranl_update": "src/repro_torch/kernels/region_aggregate.py",
+           "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+           "rwkv_wkv": "src/repro_torch/csrc/rwkv_wkv.cu"}
+ROUTES = {"region_aggregate": "triton", "ranl_update": "triton",
+          "flash_attention": "cuda", "rwkv_wkv": "cuda"}
 REPLACES = {"region_aggregate": "src/repro/kernels/region_aggregate.py:75",
-            "ranl_update": "src/repro/kernels/region_aggregate.py:138"}
+            "ranl_update": "src/repro/kernels/region_aggregate.py:138",
+            "flash_attention": "src/repro/kernels/flash_attention.py:77",
+            "rwkv_wkv": "src/repro/kernels/rwkv_wkv.py:57"}
 # main-path shapes (N, D) each kernel sees: dense rounds (K1), diag (K2)
 MAIN_SHAPE = {"region_aggregate": (32, 8192), "ranl_update": (32, 4096)}
 LARGE_SHAPE = (32, 1 << 22)
@@ -217,16 +250,23 @@ def check_finite(torch, res):
             raise AssertionError(f"non-finite {f}")
 
 
+def counted(torch, launches, fn):
+    """Run ``fn`` as one main-path run: every launch count set to 0 just
+    before, read just after and added to ``launches``.  Returns (output,
+    seconds, this run's counts)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    out, secs = sync_time(torch, fn)
+    counts = dict(LAUNCHES)
+    for name, v in counts.items():
+        launches[name] += v
+    return out, secs, counts
+
+
 def main_path_run(torch, rt, problem, key, launches, **opts):
     """One counted run of the main path through repro_torch.run; returns
     (result, seconds, launches of this run)."""
-    from repro_torch.kernels import region_aggregate as K
-    K.reset_launches()
-    res, secs = sync_time(torch, lambda: rt.run(problem, key, **opts))
-    counts = dict(K.LAUNCHES)
-    for name, v in counts.items():
-        launches[name] += v
-    return res, secs, counts
+    return counted(torch, launches, lambda: rt.run(problem, key, **opts))
 
 
 def same_run(torch, res, plain, label, atol):
@@ -266,7 +306,7 @@ def phase_dense(torch, rt, report, launches):
     d0, dT = float(res.dist_sq[0]), float(res.dist_sq[-1])
     if not dT <= 1e-6 * d0:
         raise AssertionError(f"dist_sq fell only from {d0:.3e} to {dT:.3e}")
-    if counts != {"region_aggregate": T, "ranl_update": 0}:
+    if counts != {**ZERO, "region_aggregate": T}:
         raise AssertionError(f"dense path launches {counts}")
     xs_err = same_run(torch, res, rt.run(
         problem, prng.PRNGKey(1), use_kernel=False, num_rounds=T,
@@ -298,7 +338,7 @@ def phase_diag(torch, rt, report, launches):
     res, total_s, counts = main_path_run(torch, rt, problem, prng.PRNGKey(1),
                                          launches, **opts)
     check_finite(torch, res)
-    if counts != {"region_aggregate": 0, "ranl_update": T}:
+    if counts != {**ZERO, "ranl_update": T}:
         raise AssertionError(f"diag path launches {counts}")
     l0, l1, lT = (float(res.losses[i]) for i in (0, 1, -1))
     if not lT < l0:
@@ -322,18 +362,18 @@ def phase_diag(torch, rt, report, launches):
 
 def phase_engines(torch, rt, report):
     from repro_torch import prng
-    from repro_torch.kernels import region_aggregate as K
+    from repro_torch.kernels import LAUNCHES, reset_launches
     T = 20
     problem = rt.make_quadratic(prng.PRNGKey(2), num_workers=16, dim=1024,
                                 kappa=100.0, coupling=0.0, num_regions=16,
                                 grad_noise=0.1, device="cuda")
     opts = dict(num_rounds=T, num_regions=16,
                 policy=rt.PolicyConfig(keep_prob=0.5, tau_star=1))
-    K.reset_launches()
+    reset_launches()
     scan = rt.run(problem, prng.PRNGKey(3), **opts)
     torch.cuda.synchronize()
-    if K.LAUNCHES["region_aggregate"] != T:
-        raise AssertionError(f"scan engine K1 launches {K.LAUNCHES}")
+    if LAUNCHES["region_aggregate"] != T:
+        raise AssertionError(f"scan engine K1 launches {LAUNCHES}")
     ref = rt.run(problem, prng.PRNGKey(3), engine="reference", **opts)
     for f in ("coverage", "comm_floats", "max_stale", "round_time"):
         if not torch.equal(getattr(scan, f), getattr(ref, f)):
@@ -368,22 +408,382 @@ def phase_engines(torch, rt, report):
         f"xs max |err| {scan_err:.3e}; card vs host xs max |err| {errs}")
 
 
+def phase_build(report):
+    """nvcc on each CUDA source, all started together."""
+    from repro_torch.kernels import build
+    t0 = time.time()
+    logs = build.build_all()
+    secs = time.time() - t0
+    report["build"] = {"seconds": secs}
+    log(f"build: nvcc on {len(logs)} sources in {secs:.2f} s "
+        f"(nvcc {build.nvcc()})")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+
+# --------------------------------------------------------------------------
+# K3 / K4 against their plain twins
+# --------------------------------------------------------------------------
+
+def attn_inputs(torch, b, s, h, kv, hd, dtype, gen):
+    return tuple(torch.randn(b, s, n, hd, device="cuda", generator=gen)
+                 .to(dtype) for n in (h, kv, kv))
+
+
+def wkv_inputs(torch, b, s, h, hd, dtype, gen, state=False):
+    """The serve path's inputs: r, k, v, u in ``dtype``, the Finch decay
+    w = exp(-exp(-6 + 0.5 z)) in f32, and a zero or random state."""
+    def rnd(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    r, k, v = (rnd(b, s, h, hd).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(-6.0 + 0.5 * rnd(b, s, h, hd)))
+    u = (0.5 * rnd(h, hd)).to(dtype)
+    s0 = (0.1 * rnd(b, h, hd, hd)) if state else torch.zeros(
+        b, h, hd, hd, device="cuda")
+    return r, k, v, w, u, s0
+
+
+def attn_pairs(s, window):
+    """(q, k) pairs the causal (and windowed) mask keeps for one head."""
+    if not window:
+        return s * (s + 1) // 2
+    return sum(min(q + 1, window) for q in range(s))
+
+
+def attn_bound(b, s, h, kv, hd, window, dtype):
+    es = 2 if dtype == "bfloat16" else 4
+    nbytes = es * hd * b * s * (2 * h + 2 * kv)          # q, o, k, v once
+    flops = 4 * hd * attn_pairs(s, window) * b * h       # QKᵀ and PV
+    return nbytes, flops, PEAK_FLOPS[dtype]
+
+
+def wkv_bound(b, s, h, hd, dtype):
+    es = 2 if dtype == "bfloat16" else 4
+    n = b * s * h * hd
+    nbytes = 3 * es * n + 4 * n + 4 * n + es * h * hd + 2 * 4 * b * h * hd * hd
+    flops = 5 * hd * hd * b * s * h        # y += r·S, S = w·S + k·v
+    return nbytes, flops, PEAK_FLOPS["float32"]
+
+
+def bound_row(nbytes, flops, peak):
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / peak * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "flops": flops, "bound_ms_bytes": by_bytes,
+            "bound_ms_ops": by_ops}
+
+
+def library_attention_ms(torch, sets):
+    """One PyTorch call that computes K3's function, timed like the
+    kernel: ``scaled_dot_product_attention`` on (B, H, S, hd) views."""
+    import torch.nn.functional as F
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+    out = sdpa(*sets[0])
+    return device_ms(torch, sdpa, sets), out
+
+
+def phase_attn_wkv(torch, report):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    worst = 0.0
+    for (b, s, h, kv, hd, win, dt) in (
+            (4, 1024, 24, 8, 128, 0, bf16),      # phi4-mini prefill
+            (4, 1000, 24, 8, 128, 0, bf16),      # ragged S
+            (4, 1024, 24, 8, 128, 100, bf16),    # window
+            (2, 1000, 16, 4, 64, 0, f32),        # f32, hd 64
+            (2, 1024, 24, 1, 128, 0, bf16)):     # MQA
+        q, k, v = attn_inputs(torch, b, s, h, kv, hd, dt, gen)
+        got = flash_attention(q, k, v, causal=True, window=win)
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=win)
+        torch.cuda.synchronize()
+        tol = 2e-4 if dt == f32 else 2e-2
+        err = (got.float() - want.float()).abs().max().item()
+        if got.dtype != dt or not torch.allclose(got.float(), want.float(),
+                                                 rtol=tol, atol=tol):
+            raise AssertionError(f"flash_attention {(b, s, h, kv, hd)} "
+                                 f"window {win} {dt}: max |err| {err}")
+        worst = max(worst, err)
+        log(f"flash_attention {(b, s, h, kv, hd)} window {win} {dt}: "
+            f"matches its plain twin, max |err| {err:.3e} (tol {tol})")
+        del q, k, v, got, want
+    shape = (4, 1024, 24, 8, 128)
+    nb, fl, peak = attn_bound(*shape, 0, "bfloat16")
+    sets = [attn_inputs(torch, *shape, bf16, gen)
+            for _ in range(max(2, -(-2 * L2_BYTES // nb)))]
+    lib_ms, lib_out = library_attention_ms(torch, sets)
+    lib_err = (lib_out.float() - flash_attention(*sets[0]).float()
+               ).abs().max().item()
+    row = {"max_abs_err": worst, "shape": list(shape), "dtype": "bfloat16",
+           "ms": device_ms(torch, lambda q, k, v: flash_attention(q, k, v),
+                           sets),
+           "plain_ms": device_ms(
+               torch, lambda q, k, v: ref.flash_attention_ref(q, k, v), sets),
+           "library_ms": lib_ms, "library_max_abs_diff": lib_err,
+           **bound_row(nb, fl, peak)}
+    report["flash_attention"] = row
+    log(f"flash_attention at {shape} bf16: on the card {row['ms']:.5f} ms, "
+        f"plain {row['plain_ms']:.5f} ms, scaled_dot_product_attention "
+        f"{lib_ms:.5f} ms (max |diff| {lib_err:.3e}); bound "
+        f"{row['bound_ms']:.5f} ms by {row['bound_by']} ({nb} B, {fl} flop)")
+    del sets, lib_out
+
+    worst = 0.0
+    for (b, s, h, hd, state) in ((4, 1024, 40, 64, False),   # rwkv prefill
+                                 (4, 1, 40, 64, True),       # decode
+                                 (1, 37, 3, 64, True)):      # ragged
+        args = wkv_inputs(torch, b, s, h, hd, bf16, gen, state)
+        y, sf = rwkv_wkv(*args)
+        y_ref, sf_ref = ref.rwkv_wkv_ref(*args)
+        torch.cuda.synchronize()
+        err = max((y - y_ref).abs().max().item(),
+                  (sf - sf_ref).abs().max().item())
+        if not (torch.allclose(y, y_ref, rtol=2e-4, atol=2e-4)
+                and torch.allclose(sf, sf_ref, rtol=2e-4, atol=2e-4)):
+            raise AssertionError(f"rwkv_wkv {(b, s, h, hd)}: max |err| {err}")
+        worst = max(worst, err)
+        log(f"rwkv_wkv {(b, s, h, hd)} bf16 r/k/v/u, state "
+            f"{'random' if state else 'zero'}: matches its plain twin, max "
+            f"|err| {err:.3e} (|y| up to {y_ref.abs().max().item():.1f})")
+    row = {"max_abs_err": worst, "dtype": "bfloat16", "library_ms": None}
+    for label, shape in (("", (4, 1024, 40, 64)), ("_decode", (4, 1, 40, 64))):
+        nb, fl, peak = wkv_bound(*shape, "bfloat16")
+        sets = [wkv_inputs(torch, *shape, bf16, gen, True)
+                for _ in range(max(2, -(-2 * L2_BYTES // nb)))]
+        b_row = bound_row(nb, fl, peak)
+        row.update({f"ms{label}": device_ms(torch, rwkv_wkv, sets),
+                    f"plain_ms{label}": device_ms(torch, ref.rwkv_wkv_ref,
+                                                  sets[:2]),
+                    f"shape{label}": list(shape),
+                    **{f"{k}{label}": v for k, v in b_row.items()}})
+        log(f"rwkv_wkv at {shape}: on the card {row[f'ms{label}']:.5f} ms, "
+            f"plain {row[f'plain_ms{label}']:.5f} ms over {len(sets)} input "
+            f"sets; bound {b_row['bound_ms']:.5f} ms by {b_row['bound_by']} "
+            f"({nb} B, {fl} flop)")
+        del sets
+    report["rwkv_wkv"] = row
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# the serve path at full width
+# --------------------------------------------------------------------------
+
+def tree_finite(torch, tree):
+    if isinstance(tree, dict):
+        return all(tree_finite(torch, v) for v in tree.values())
+    return bool(torch.isfinite(tree.float()).all())
+
+
+def param_count(params):
+    def walk(node):
+        if isinstance(node, dict):
+            return sum(walk(v) for v in node.values())
+        if isinstance(node, list):
+            return sum(walk(v) for v in node)
+        return node.numel()
+    return walk(params)
+
+
+def decode_step_profile(torch, step):
+    """One decode step, counted and timed apart from the host: the PyTorch
+    operators it dispatches (each a kernel launch, less the views and
+    the hand-written kernels' ctypes calls), and its time on the card
+    alone, as the median replay of a CUDA graph of it (None if it
+    cannot be captured)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.ops += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        step()
+    out = {"decode_ops": Count.ops, "decode_device_ms": None}
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        graph.replay()
+        torch.cuda.synchronize()
+        out["decode_device_ms"] = statistics.median(
+            event_ms(torch, graph.replay) for _ in range(10))
+        del graph
+    except RuntimeError:        # a step that cannot be captured
+        traceback.print_exc()
+        log("decode step: the CUDA graph could not be captured; its time "
+            "on the card is not measured")
+    return out
+
+
+def phase_serve(torch, report, launches, arch, expect):
+    """Serve one published config at full width and depth in its dtype:
+    a warm-up prefill + decode step (finite logits and cache), then one
+    counted ``generate`` of 32 tokens after a 1024-token prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import init_model
+    cfg = get_config(arch)
+    B, P, G = 4, 1024, 32
+    g = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = sync_time(torch, lambda: init_model(
+        cfg, g, getattr(torch, cfg.dtype)))
+    n = param_count(params)
+    prompt = make_batch(cfg, g, B, P, kind="prefill", pattern="bigram")
+    with torch.inference_mode():
+        logits, cache = serve.prefill_step(params, prompt, cfg)
+        if not (tree_finite(torch, logits) and tree_finite(torch, cache)):
+            raise AssertionError(f"{arch}: non-finite prefill output")
+        if not cfg.attn_free:
+            cache = serve.pad_cache(cache, P + G)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        tok, cache = serve.serve_step(params, cache, tok, P, cfg)
+        if not tree_finite(torch, cache):
+            raise AssertionError(f"{arch}: non-finite decode cache")
+        step = decode_step_profile(torch, lambda: serve.serve_step(
+            params, cache, tok, P + 1, cfg))
+        del logits, cache
+        (toks, times), total_s, counts = counted(
+            torch, launches, lambda: serve.generate(params, prompt, cfg, G))
+    if counts != {**ZERO, **expect}:
+        raise AssertionError(f"{arch}: launches {counts}, expected {expect}")
+    if tuple(toks.shape) != (B, G) or not (
+            0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size):
+        raise AssertionError(f"{arch}: generated tokens out of range")
+    row = {"params": n, "dtype": cfg.dtype, "init_s": init_s,
+           "prefill_s": times["prefill_s"],
+           "decode_ms_per_token": times["decode_s"] / (G - 1) * 1e3,
+           "generate_s": total_s, "batch": B, "prompt": P, "gen": G,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts, "tokens_0": toks[0, :8].tolist(), **step}
+    if step["decode_device_ms"] is not None:
+        row["decode_idle_share"] = 1 - (step["decode_device_ms"]
+                                        / row["decode_ms_per_token"])
+    report[f"serve_{arch}"] = row
+    log(f"serve {arch}: {n / 1e9:.3f} B params in {cfg.dtype}, init "
+        f"{init_s:.2f} s; prefill {B}x{P} {row['prefill_s']:.4f} s; decode "
+        f"{row['decode_ms_per_token']:.3f} ms/token (warm, {G - 1} steps); "
+        f"peak {row['peak_gb']:.2f} GB; launches {counts}; first tokens "
+        f"{row['tokens_0']}")
+    log(f"serve {arch} decode step: {step['decode_ops']} aten ops; on the "
+        f"card alone (CUDA-graph replay) {step['decode_device_ms']} ms, "
+        f"idle share of the eager step {row.get('decode_idle_share')}")
+    del params, prompt
+    torch.cuda.empty_cache()
+
+
+def phase_serve_consistent(torch, report):
+    """Teacher-forced prefill + decode against the full forward, at full
+    width in f32, as tests/test_models.py holds the reference."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.models import forward, init_model
+    for arch in ("rwkv6-3b", "phi4-mini-3.8b"):
+        cfg = get_config(arch)
+        T, Tp = 256, 192
+        g = torch.Generator(device="cuda").manual_seed(2)
+        params = init_model(cfg, g, torch.float32)
+        toks = make_batch(cfg, g, 2, T, kind="train")["tokens"]
+        with torch.inference_mode():
+            full, _, _ = forward(params, {"tokens": toks}, cfg, mode="train")
+            pre, cache, _ = forward(params, {"tokens": toks[:, :Tp]}, cfg,
+                                    mode="prefill")
+            if not cfg.attn_free:
+                cache = pad_cache(cache, T)
+            err_p = (pre[:, -1] - full[:, Tp - 1]).abs().max().item()
+            if not torch.allclose(pre[:, -1], full[:, Tp - 1], rtol=2e-3,
+                                  atol=2e-3):
+                raise AssertionError(f"{arch}: prefill vs full forward "
+                                     f"max |err| {err_p}")
+            err_d = 0.0
+            for t in range(Tp, T):
+                logits, cache, _ = forward(
+                    params, {"tokens": toks[:, t:t + 1], "pos": t}, cfg,
+                    mode="decode", cache=cache)
+                err_d = max(err_d, (logits[:, 0] - full[:, t]).abs().max()
+                            .item())
+                if not torch.allclose(logits[:, 0], full[:, t], rtol=3e-3,
+                                      atol=3e-3):
+                    raise AssertionError(f"{arch}: decode at {t} vs full "
+                                         f"forward max |err| {err_d}")
+        scale = full.abs().max().item()
+        report[f"consistent_{arch}"] = {"prefill_max_abs": err_p,
+                                        "decode_max_abs": err_d,
+                                        "logits_max_abs": scale}
+        log(f"serve_consistent {arch} (f32, full width): prefill vs full "
+            f"forward max |err| {err_p:.3e}, decode {Tp}..{T - 1} max |err| "
+            f"{err_d:.3e} (|logits| up to {scale:.2f})")
+        del params, full, cache
+        torch.cuda.empty_cache()
+
+
+def phase_card_vs_host(torch, report):
+    """The same parameters through ``forward`` on the card (kernels) and
+    on the CPU (plain twins): full width, 2 layers, batch 1, 128 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_model
+    for arch in ("rwkv6-3b", "phi4-mini-3.8b"):
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        params = init_model(cfg, g, torch.float32)
+        toks = torch.randint(0, cfg.vocab_size, (1, 128), device="cuda",
+                             generator=g, dtype=torch.int32)
+
+        def to_cpu(node):
+            if isinstance(node, dict):
+                return {k: to_cpu(v) for k, v in node.items()}
+            if isinstance(node, list):
+                return [to_cpu(v) for v in node]
+            return node.cpu()
+        with torch.inference_mode():
+            card, _, _ = forward(params, {"tokens": toks}, cfg)
+            host, _, _ = forward(to_cpu(params), {"tokens": toks.cpu()}, cfg)
+        err = (card.cpu() - host).abs().max().item()
+        if not torch.allclose(card.cpu(), host, rtol=1e-3, atol=1e-3):
+            raise AssertionError(f"{arch}: card vs host max |err| {err}")
+        report[f"card_vs_host_{arch}"] = {
+            "logits_max_abs_err": err,
+            "logits_max_abs": host.abs().max().item()}
+        log(f"models_card_vs_host {arch} (2 layers, f32): logits max |err| "
+            f"{err:.3e} (|logits| up to {host.abs().max().item():.2f})")
+        del params, card, host
+        torch.cuda.empty_cache()
+
+
 def kernels_line(report, launches):
+    """One row per kernel: the contract's keys first, then the extra
+    measurements each row carries (shapes, one-call times, decode)."""
     rows = []
-    for name in ("region_aggregate", "ranl_update"):
-        r = report[name]
-        rows.append({"name": name, "route": "triton",
-                     "source": KERNEL_SOURCE, "replaces": REPLACES[name],
-                     "launches": launches[name],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": "bytes", "library_ms": None,
-                     "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
-                     "shape": r["shape"], "ms_large": r["ms_large"],
-                     "plain_ms_large": r["plain_ms_large"],
-                     "call_ms_large": r["call_ms_large"],
-                     "bound_ms_large": r["bound_ms_large"],
-                     "shape_large": r["shape_large"]})
+    for name in KERNELS:
+        r = dict(report[name])
+        row = {"name": name, "route": ROUTES[name], "source": SOURCES[name],
+               "replaces": REPLACES[name], "launches": launches[name],
+               "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
+               "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
+               "bound_by": r.pop("bound_by", "bytes"),
+               "library_ms": r.pop("library_ms", None)}
+        row.update(r)
+        rows.append(row)
     return json.dumps({"kernels": rows})
 
 
@@ -414,15 +814,26 @@ def main() -> int:
         else f"nvidia-smi failed: {smi.stderr.strip()}")
 
     report = {}
-    launches = {"region_aggregate": 0, "ranl_update": 0}
+    launches = dict(ZERO)
     failed = []
     t_all = time.time()
-    for label, fn in (("kernels", lambda: phase_kernels(torch, report)),
-                      ("dense", lambda: phase_dense(torch, rt, report,
-                                                    launches)),
-                      ("diag", lambda: phase_diag(torch, rt, report,
-                                                  launches)),
-                      ("engines", lambda: phase_engines(torch, rt, report))):
+    for label, fn in (
+            ("build", lambda: phase_build(report)),
+            ("kernels", lambda: phase_kernels(torch, report)),
+            ("kernels_attn_wkv", lambda: phase_attn_wkv(torch, report)),
+            ("dense", lambda: phase_dense(torch, rt, report, launches)),
+            ("diag", lambda: phase_diag(torch, rt, report, launches)),
+            ("engines", lambda: phase_engines(torch, rt, report)),
+            ("serve_rwkv", lambda: phase_serve(
+                torch, report, launches, "rwkv6-3b",
+                {"rwkv_wkv": 32 * (1 + 31)})),
+            ("serve_dense", lambda: phase_serve(
+                torch, report, launches, "phi4-mini-3.8b",
+                {"flash_attention": 32})),
+            ("serve_consistent", lambda: phase_serve_consistent(torch,
+                                                                report)),
+            ("models_card_vs_host", lambda: phase_card_vs_host(torch,
+                                                               report))):
         t0 = time.time()
         try:
             fn()
@@ -431,6 +842,7 @@ def main() -> int:
             failed.append(label)
             traceback.print_exc()
             log(f"phase {label}: FAILED ({time.time() - t0:.1f} s)")
+            torch.cuda.empty_cache()
     log(f"total {time.time() - t_all:.1f} s")
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
@@ -440,8 +852,7 @@ def main() -> int:
             print(f"chip_smoke: {name} never launched on the main path",
                   file=sys.stderr)
             return 1
-    log(json.dumps({k: v for k, v in report.items()
-                    if k in ("dense", "diag", "engines")}))
+    log(json.dumps({k: v for k, v in report.items() if k not in KERNELS}))
     log(kernels_line(report, launches))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

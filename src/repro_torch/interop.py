@@ -1,8 +1,8 @@
 """Carrying state across from the reference package.
 
-Both helpers take plain numpy data, so this module needs neither the
+Every helper takes plain numpy data, so this module needs neither the
 reference package nor its framework: the caller turns the reference's
-problem leaves and keys into numpy arrays first.
+problem leaves, keys and parameter trees into numpy arrays first.
 """
 
 from __future__ import annotations
@@ -46,3 +46,33 @@ def key_from_numpy(key) -> np.ndarray:
     if k.shape != (2,):
         raise ValueError(f"expected one key of shape (2,), got {k.shape}")
     return k
+
+
+def _tensor(a, device, dtype):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # numpy has no bf16 of its own
+        t = torch.tensor(a.astype(np.float32), device=device)
+        return t.to(dtype or torch.bfloat16)
+    t = torch.tensor(a, device=device)
+    return t if dtype is None else t.to(dtype)
+
+
+def model_params_from_numpy(cfg, tree, device=None, dtype=None):
+    """The reference's model parameters -> the port's.
+
+    ``tree``: what the reference's ``init_model`` returns, as nested dicts
+    of numpy arrays, with the layers stacked on a leading L axis.  The
+    port keeps the reference's names; its ``"layers"`` is a list of L
+    per-layer dicts.  ``dtype`` None keeps each array's type."""
+    dev = resolve_device(device)
+
+    def convert(node, layer=None):
+        if isinstance(node, dict):
+            return {k: convert(v, layer) for k, v in node.items()}
+        return _tensor(node if layer is None else np.asarray(node)[layer],
+                       dev, dtype)
+
+    params = {k: convert(v) for k, v in tree.items() if k != "layers"}
+    params["layers"] = [convert(tree["layers"], i)
+                        for i in range(cfg.num_layers)]
+    return params

@@ -3,10 +3,13 @@
   region_aggregate / ranl_update — the server aggregation (Algorithm 1
       lines 15–22), fused; ranl_update also applies the diagonal
       projected-Newton step.  Triton, for Hopper.
+  flash_attention — causal GQA self-attention with a sliding window.
+      CUDA C++ (``csrc/flash_attention.cu``), for Hopper.
+  rwkv_wkv — the RWKV-6 wkv recurrence.  CUDA C++ (``csrc/rwkv_wkv.cu``).
 
 ``ops`` dispatches by device; ``ref`` holds the plain versions;
-``LAUNCHES`` counts kernel launches.
+``LAUNCHES`` counts kernel launches; ``build`` compiles the CUDA sources.
 """
 
 from . import ops, ref  # noqa: F401
-from .region_aggregate import LAUNCHES, reset_launches  # noqa: F401
+from .launches import LAUNCHES, reset_launches  # noqa: F401

@@ -1,0 +1,111 @@
+"""Builds the port's CUDA C++ kernels with ``nvcc`` and loads them.
+
+Each source ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and
+compiles on its own into ``build/kernels/<name>-<hash>.so`` at the root of
+the checkout (``build/`` is git-ignored), where ``<hash>`` covers the
+source and the flags: a library is rebuilt only when its source changes.
+The library is loaded with ``ctypes``.  Nothing is built when this module
+is imported; ``library(name)`` builds at first use, and ``build_all()``
+starts one ``nvcc`` per source, all at once.  This is the one module that
+knows about ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("flash_attention", "rwkv_wkv")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_TIMEOUT_S = 600.0
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, else ``PATH``, else
+    ``/usr/local/cuda/bin``; raises when there is none."""
+    home = os.environ.get("CUDA_HOME")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+            shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]:
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME)")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start ``nvcc`` on one source into a temporary file; returns
+    (process, temporary path, final path), or None when it is built."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", prefix=f".{name}-",
+                               dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> str:
+    proc, tmp, out = started
+    try:
+        log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc on {name}.cu ran past {NVCC_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)        # atomic: concurrent builders agree
+    return log
+
+
+def build_all() -> dict:
+    """Build every source that is not built yet, one ``nvcc`` each, all
+    started together.  Returns {name: compiler log} ("" if it was
+    already built)."""
+    started = {name: _start(name) for name in SOURCES}
+    return {name: ("" if s is None else _finish(name, s))
+            for name, s in started.items()}
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    started = _start(name)
+    if started is not None:
+        _finish(name, started)
+    return ctypes.CDLL(str(library_path(name)))
+
+
+def check_launch(code: int, name: str):
+    """Raise if a library's launch entry returned a CUDA error code."""
+    if code != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code}")
+
+
+def stream_handle(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,11 @@
+"""Launch counts of the port's kernels: each wrapper adds one to its
+entry where it launches its kernel, and nowhere else, so a run can show
+that it went through the kernels."""
+
+LAUNCHES = {"region_aggregate": 0, "ranl_update": 0, "flash_attention": 0,
+            "rwkv_wkv": 0}
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -4,8 +4,10 @@ back from one to the other."""
 
 from __future__ import annotations
 
+from . import flash_attention as _fa
 from . import ref
 from . import region_aggregate as _k
+from . import rwkv_wkv as _wkv
 
 
 def _on_cpu(t) -> bool:
@@ -28,3 +30,18 @@ def ranl_update(params, hdiag, grads, masks, memory, *, mu: float,
         return ref.ranl_update_ref(params, hdiag, grads, masks, memory,
                                    mu=mu, lr=lr)
     return _k.ranl_update(params, hdiag, grads, masks, memory, mu=mu, lr=lr)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd) in q.dtype."""
+    if _on_cpu(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def rwkv_wkv(r, k, v, w, u, state):
+    """r, k, v, w: (B, S, H, hd); u: (H, hd); state: (B, H, hd, hd) f32
+    -> (y (B, S, H, hd) f32, final state)."""
+    if _on_cpu(r):
+        return ref.rwkv_wkv_ref(r, k, v, w, u, state)
+    return _wkv.rwkv_wkv(r, k, v, w, u, state)

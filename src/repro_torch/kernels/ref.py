@@ -34,3 +34,50 @@ def ranl_update_ref(params, hdiag, grads, masks, memory, *, mu: float,
     h_mu = torch.clamp_min(hdiag, float(mu))
     new_params = params - float(lr) * g / h_mu
     return new_params, new_memory
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        scale: float | None = None):
+    """Full-softmax attention: the plain version of ``flash_attention``.
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) with H % KV == 0.
+    Sliding ``window`` (0 = unbounded) measured in absolute positions,
+    q positions = arange(Skv - Sq, Skv) (suffix alignment), k = arange(Skv).
+    Returns (B, Sq, H, hd) in q.dtype."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    groups = H // KV
+    scale = hd ** -0.5 if scale is None else scale
+    kr = k.repeat_interleave(groups, dim=2).float()
+    vr = v.repeat_interleave(groups, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * scale
+    qpos = torch.arange(Skv - Sq, Skv, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    valid = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= kpos <= qpos
+    if window:
+        valid &= kpos > qpos - window
+    s = torch.where(valid[None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vr)
+    return out.to(q.dtype)
+
+
+def rwkv_wkv_ref(r, k, v, w, u, state):
+    """RWKV-6 wkv recurrence, a sequential loop over time: the plain
+    version of ``rwkv_wkv``.
+
+        y_t = r_t · (S + u ⊙ k_t v_tᵀ),   S ← diag(w_t) S + k_t v_tᵀ
+
+    r, k, v, w: (B, S, H, hd); u: (H, hd); state: (B, H, hd, hd) f32.
+    Returns (y (B, S, H, hd) f32, final state)."""
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    u = u.float()[None, :, :, None]
+    S = state.float()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]      # (B, H, hd, hd)
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], S + u * kv))
+        S = w[:, t, :, :, None] * S + kv
+    return torch.stack(ys, dim=1), S

@@ -33,13 +33,7 @@ import functools
 
 import torch
 
-# Launch counts, bumped only where a kernel is launched.
-LAUNCHES = {"region_aggregate": 0, "ranl_update": 0}
-
-
-def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+from .launches import LAUNCHES
 
 
 def _aggregate_kernel(g_ptr, m_ptr, c_ptr, out_c_ptr, out_ptr, x_ptr, h_ptr,

@@ -1,11 +1,13 @@
 """The port's kernels: the plain versions against the reference's oracles
 and its Pallas kernels (interpret mode, as tests/test_kernels.py runs
-them), the dispatch by device, and — on a card — the Triton kernels
-against the plain versions.
+them), the dispatch by device, and — on a card — the Triton and CUDA
+kernels against the plain versions.
 
 Tolerances: C′ is a select, so it is bit-equal everywhere.  ḡ and x′ sum
 N rows in another order than the reference (rtol 1e-4, atol 1e-5
-against the reference, 1e-5/1e-6 kernel against plain on the card)."""
+against the reference, 1e-5/1e-6 kernel against plain on the card).
+Attention and the wkv recurrence take their sums in another order too:
+those of tests/test_kernels.py, 2e-4 in f32 and 2e-2 in bf16."""
 
 import numpy as np
 import pytest
@@ -13,7 +15,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import LAUNCHES, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import region_aggregate as K  # noqa: E402
+from repro_torch.kernels import rwkv_wkv as WKV  # noqa: E402
 
 SHAPES = [(1, 1), (3, 129), (7, 513)]
 MASKS = ["random", "all_false", "all_true"]
@@ -155,3 +159,213 @@ def test_triton_wrappers_check_inputs_on_card(cuda):
         K.region_aggregate(g, m[:, :20], c)
     with pytest.raises(ValueError, match="contiguous"):
         K.region_aggregate(g[:, ::2], m[:, ::2], c[:, ::2])
+
+
+# --------------------------------------------------------------------------
+# flash attention (K3) and the wkv recurrence (K4)
+# --------------------------------------------------------------------------
+
+# the cases of tests/test_kernels.py: (b, s, h, kv, hd, window)
+ATTN_CASES = [
+    (1, 128, 2, 2, 64, 0),       # MHA
+    (2, 256, 4, 2, 64, 0),       # GQA
+    (1, 256, 4, 1, 128, 0),      # MQA
+    (2, 256, 4, 2, 64, 100),     # sliding window
+    (1, 256, 2, 2, 32, 64),      # narrow window
+]
+WKV_CASES = [(1, 64, 2, 16), (2, 128, 4, 64), (1, 256, 1, 32)]
+
+
+def _attn_inputs(b, s, h, kv, hd, seed=0):
+    rng = np.random.default_rng(seed + 7 * s + hd)
+    return (rng.normal(size=(b, s, h, hd)).astype(np.float32),
+            rng.normal(size=(b, s, kv, hd)).astype(np.float32),
+            rng.normal(size=(b, s, kv, hd)).astype(np.float32))
+
+
+def _wkv_inputs(b, s, h, hd, seed=0, state=True):
+    rng = np.random.default_rng(seed + 13 * s + hd)
+    r, k, v = (rng.normal(size=(b, s, h, hd)).astype(np.float32)
+               for _ in range(3))
+    w = (0.45 + 0.5 / (1 + np.exp(-rng.normal(size=(b, s, h, hd))))
+         ).astype(np.float32)
+    u = (rng.normal(size=(h, hd)) * 0.3).astype(np.float32)
+    s0 = (rng.normal(size=(b, h, hd, hd)) * 0.1 * state).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kv,hd,win", ATTN_CASES, ids=str)
+def test_plain_flash_attention_matches_reference(reference, b, s, h, kv, hd,
+                                                 win, dtype):
+    jnp, jops, jref = reference
+    arrays = _attn_inputs(b, s, h, kv, hd)
+    jx = [jnp.asarray(a).astype(dtype) for a in arrays]
+    tx = [torch.tensor(a).to(getattr(torch, dtype)) for a in arrays]
+    got = ref.flash_attention_ref(*tx, causal=True, window=win)
+    assert got.dtype == tx[0].dtype and got.shape == (b, s, h, hd)
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    for want in (jops.flash_attention(*jx, causal=True, window=win,
+                                      block_q=64, block_k=64),
+                 jref.flash_attention_ref(*jx, causal=True, window=win)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+def test_plain_flash_attention_matches_reference_without_causal_mask(
+        reference):
+    jnp, _, jref = reference
+    arrays = _attn_inputs(1, 48, 4, 2, 32)
+    got = ref.flash_attention_ref(*_t(*arrays), causal=False, window=0)
+    want = jref.flash_attention_ref(*map(jnp.asarray, arrays), causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("b,s,h,hd", WKV_CASES, ids=str)
+def test_plain_rwkv_wkv_matches_reference(reference, b, s, h, hd):
+    jnp, jops, jref = reference
+    from repro.models.rwkv import _wkv_scan
+    arrays = _wkv_inputs(b, s, h, hd)
+    y, sf = ref.rwkv_wkv_ref(*_t(*arrays))
+    assert y.dtype == torch.float32 and y.shape == (b, s, h, hd)
+    jx = [jnp.asarray(a) for a in arrays]
+    for want in (jops.rwkv_wkv(*jx, block_t=min(64, s)),
+                 jref.rwkv_wkv_ref(*jx), _wkv_scan(*jx)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want[0]),
+                                   rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(sf.numpy(), np.asarray(want[1]),
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_plain_rwkv_wkv_takes_bf16_inputs_in_f32(reference):
+    """r, k, v, u in bf16 (the serve dtype) are widened, not rounded
+    further: the same as the reference's scan on the same bf16 values."""
+    jnp, _, _ = reference
+    from repro.models.rwkv import _wkv_scan
+    r, k, v, w, u, s0 = _wkv_inputs(2, 37, 3, 64)
+    tb = [torch.tensor(a).to(torch.bfloat16) for a in (r, k, v, u)]
+    y, sf = ref.rwkv_wkv_ref(tb[0], tb[1], tb[2], torch.tensor(w), tb[3],
+                             torch.tensor(s0))
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (r, k, v, u)]
+    want = _wkv_scan(jb[0], jb[1], jb[2], jnp.asarray(w), jb[3],
+                     jnp.asarray(s0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want[0]), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(sf.numpy(), np.asarray(want[1]), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_cpu_dispatch_of_attention_and_wkv_takes_plain_version():
+    before = dict(LAUNCHES)
+    q, k, v = _t(*_attn_inputs(1, 40, 4, 2, 32))
+    assert torch.equal(ops.flash_attention(q, k, v, causal=True, window=8),
+                       ref.flash_attention_ref(q, k, v, causal=True,
+                                               window=8))
+    args = _t(*_wkv_inputs(1, 9, 2, 16))
+    a, b = ops.rwkv_wkv(*args), ref.rwkv_wkv_ref(*args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert dict(LAUNCHES) == before
+
+
+def test_cuda_wrappers_reject_host_tensors():
+    q, k, v = _t(*_attn_inputs(1, 8, 2, 1, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        WKV.rwkv_wkv(*_t(*_wkv_inputs(1, 4, 2, 16)))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# the kernels' shapes on the card: the model's main path, a ragged S, a
+# window, f32 at hd 64, MQA
+CARD_ATTN_CASES = ATTN_CASES + [(2, 1000, 24, 8, 128, 0),
+                                (1, 1000, 8, 8, 128, 100),
+                                (1, 77, 4, 1, 64, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kv,hd,win", CARD_ATTN_CASES, ids=str)
+def test_flash_attention_kernel_matches_plain_on_card(cuda, b, s, h, kv, hd,
+                                                      win, dtype):
+    q, k, v = (t.to(getattr(torch, dtype))
+               for t in _t(*_attn_inputs(b, s, h, kv, hd), device=cuda))
+    before = LAUNCHES["flash_attention"]
+    got = FA.flash_attention(q, k, v, causal=True, window=win)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=win)
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == q.dtype
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_reads_strided_inputs_on_card(cuda):
+    """q/k/v as views of one fused projection (strided rows), and
+    causal=False, agree with the plain version on contiguous copies."""
+    qkv = torch.randn(2, 70, 4 + 2 + 2, 64, device=cuda)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    for causal in (True, False):
+        got = FA.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), causal=causal)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,hd", WKV_CASES + [(4, 1024, 40, 64),
+                                                  (4, 1, 40, 64),
+                                                  (1, 37, 3, 64),
+                                                  (1, 50, 2, 128)], ids=str)
+def test_rwkv_wkv_kernel_matches_plain_on_card(cuda, b, s, h, hd, dtype):
+    r, k, v, w, u, s0 = _t(*_wkv_inputs(b, s, h, hd), device=cuda)
+    dt = getattr(torch, dtype)
+    r, k, v, u = (t.to(dt) for t in (r, k, v, u))
+    before = LAUNCHES["rwkv_wkv"]
+    y, sf = WKV.rwkv_wkv(r, k, v, w, u, s0)
+    assert LAUNCHES["rwkv_wkv"] == before + 1
+    y_ref, sf_ref = ref.rwkv_wkv_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(sf, sf_ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_check_inputs_on_card(cuda):
+    q, k, v = _t(*_attn_inputs(1, 8, 2, 1, 32), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(q[..., :16], k[..., :16], v[..., :16])
+    with pytest.raises(TypeError):
+        FA.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                           k, v)
+    r, kk, vv, w, u, s0 = _t(*_wkv_inputs(1, 4, 2, 16), device=cuda)
+    with pytest.raises(TypeError):
+        WKV.rwkv_wkv(r, kk, vv, w.double(), u, s0)
+    with pytest.raises(ValueError):
+        WKV.rwkv_wkv(r, kk, vv, w, u, s0[:, :1])
+
+
+def test_build_names_each_library_by_its_source_and_needs_nvcc(monkeypatch):
+    """The CUDA libraries are keyed by a hash of source and flags, so only
+    a changed source rebuilds; without nvcc the build raises."""
+    from repro_torch.kernels import build
+    paths = {name: build.library_path(name) for name in build.SOURCES}
+    assert set(paths) == {"flash_attention", "rwkv_wkv"}
+    for name, path in paths.items():
+        assert path.parent == build.BUILD_DIR
+        assert path.name.startswith(name + "-") and path.suffix == ".so"
+        assert (build.CSRC / f"{name}.cu").is_file()
+        assert build.library_path(name) == path
+    monkeypatch.setattr(build, "FLAGS", build.FLAGS + ("-DX",))
+    assert build.library_path("rwkv_wkv") != paths["rwkv_wkv"]
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(build.os, "access", lambda *a: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.nvcc()
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        build.check_launch(9, "rwkv_wkv")
