@@ -10,20 +10,25 @@ the card and times both, then drives the port's paths at full width:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` on each CUDA source, all started together, into
-   ``build/kernels/`` (registers and spills from ``-Xptxas -v``);
+   ``build/kernels/`` (registers and spills from ``-Xptxas -v``), and the
+   count of tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in the
+   flash_attention library (``cuobjdump -sass``, where the toolkit has it);
 3. kernels (K1/K2) against their plain versions at (N, D) = (32, 2²²+37),
    (7, 513), (1, 1) and the main path's shapes, with random, all-false
    and all-true masks (C′ bit-equal; ḡ and x′ within rtol 1e-5, atol
    1e-6 — the N-sum runs in another order); times at the main path's
    shapes and at (32, 2²²);
 4. kernels (K3/K4) against their plain twins: flash attention at
-   phi4-mini's prefill (4, 1024, 24, 8, 128) in bf16, at a ragged S, with
-   a window, in f32 at hd 64 and with one kv head; the wkv recurrence at
-   rwkv6-3b's prefill (4, 1024, 40, 64), its decode (4, 1, 40, 64) and a
-   ragged (1, 37, 3, 64) from a non-zero state.  Tolerances are those of
-   tests/test_kernels.py (2e-4 f32, 2e-2 bf16 for K3; 2e-4 for K4): the
-   sums run in another order.  Times at the serve shapes, beside the
-   bound and, for K3, ``scaled_dot_product_attention``'s time;
+   phi4-mini's prefill (4, 1024, 24, 8, 128) in bf16, at a ragged S, at
+   a ragged S below one tile, with a window, at hd 64 in bf16 and in f32
+   and with one kv head, each with the body its (dtype, hd) routes to
+   (bf16 at hd 64/128: the tensor-core body; f32: the SIMT body); the
+   wkv recurrence at rwkv6-3b's prefill (4, 1024, 40, 64), its decode
+   (4, 1, 40, 64) and a ragged (1, 37, 3, 64) from a non-zero state.
+   Tolerances are those of tests/test_kernels.py (2e-4 f32, 2e-2 bf16 for
+   K3; 2e-4 for K4): the sums run in another order.  Times at the serve
+   shapes, beside the bound, K3's achieved TFLOP/s and
+   ``scaled_dot_product_attention``'s time;
 5. dense main path: quadratic, N=32, d=8192, κ=1e3, 64 regions, 30
    rounds (dist² must fall by 1e-6 — the condition-independent rate of
    homogeneous workers), held against the same run on the plain path;
@@ -61,6 +66,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -408,6 +414,21 @@ def phase_engines(torch, rt, report):
         f"xs max |err| {scan_err:.3e}; card vs host xs max |err| {errs}")
 
 
+def sass_counts(build):
+    """Counts of the tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
+    in the built flash_attention library, from ``cuobjdump -sass`` beside
+    ``nvcc``; None where the toolkit has no ``cuobjdump``."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        return None
+    sass = subprocess.run([tool, "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "UTMALDG")}
+
+
 def phase_build(report):
     """nvcc on each CUDA source, all started together."""
     from repro_torch.kernels import build
@@ -419,8 +440,14 @@ def phase_build(report):
         f"(nvcc {build.nvcc()})")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
+            if ("Compiling entry" in line or "Used" in line or "spill" in line
+                    or "arning" in line):
                 log(f"  {name}: {line.strip()}")
+    counts = sass_counts(build)
+    report["build"]["flash_attention_sass"] = counts
+    log("flash_attention library, cuobjdump -sass: " + (
+        "cuobjdump not found" if counts is None else
+        f"{counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG instructions"))
 
 
 # --------------------------------------------------------------------------
@@ -492,18 +519,23 @@ def library_attention_ms(torch, sets):
 def phase_attn_wkv(torch, report):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import route as attention_route
     from repro_torch.kernels.rwkv_wkv import rwkv_wkv
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
 
-    worst = 0.0
+    worst = {}
+    routes = {}
     for (b, s, h, kv, hd, win, dt) in (
             (4, 1024, 24, 8, 128, 0, bf16),      # phi4-mini prefill
             (4, 1000, 24, 8, 128, 0, bf16),      # ragged S
+            (3, 77, 24, 8, 128, 0, bf16),        # ragged S below one tile
             (4, 1024, 24, 8, 128, 100, bf16),    # window
+            (2, 1000, 16, 4, 64, 0, bf16),       # bf16, hd 64
             (2, 1000, 16, 4, 64, 0, f32),        # f32, hd 64
             (2, 1024, 24, 1, 128, 0, bf16)):     # MQA
         q, k, v = attn_inputs(torch, b, s, h, kv, hd, dt, gen)
+        body = attention_route(dt, hd)
         got = flash_attention(q, k, v, causal=True, window=win)
         want = ref.flash_attention_ref(q, k, v, causal=True, window=win)
         torch.cuda.synchronize()
@@ -513,9 +545,11 @@ def phase_attn_wkv(torch, report):
                                                  rtol=tol, atol=tol):
             raise AssertionError(f"flash_attention {(b, s, h, kv, hd)} "
                                  f"window {win} {dt}: max |err| {err}")
-        worst = max(worst, err)
-        log(f"flash_attention {(b, s, h, kv, hd)} window {win} {dt}: "
-            f"matches its plain twin, max |err| {err:.3e} (tol {tol})")
+        worst[body] = max(worst.get(body, 0.0), err)
+        routes[f"{(b, s, h, kv, hd)} window {win} {dt}"] = body
+        log(f"flash_attention {(b, s, h, kv, hd)} window {win} {dt}, "
+            f"{body} body: matches its plain twin, max |err| {err:.3e} "
+            f"(tol {tol})")
         del q, k, v, got, want
     shape = (4, 1024, 24, 8, 128)
     nb, fl, peak = attn_bound(*shape, 0, "bfloat16")
@@ -524,18 +558,25 @@ def phase_attn_wkv(torch, report):
     lib_ms, lib_out = library_attention_ms(torch, sets)
     lib_err = (lib_out.float() - flash_attention(*sets[0]).float()
                ).abs().max().item()
-    row = {"max_abs_err": worst, "shape": list(shape), "dtype": "bfloat16",
+    row = {"max_abs_err": max(worst.values()), "max_abs_err_by_body": worst,
+           "shape": list(shape), "dtype": "bfloat16",
+           "body": attention_route(bf16, shape[-1]), "routes": routes,
            "ms": device_ms(torch, lambda q, k, v: flash_attention(q, k, v),
                            sets),
            "plain_ms": device_ms(
                torch, lambda q, k, v: ref.flash_attention_ref(q, k, v), sets),
            "library_ms": lib_ms, "library_max_abs_diff": lib_err,
            **bound_row(nb, fl, peak)}
+    row["tflops"] = fl / row["ms"] * 1e-9
+    row["library_tflops"] = fl / lib_ms * 1e-9
     report["flash_attention"] = row
-    log(f"flash_attention at {shape} bf16: on the card {row['ms']:.5f} ms, "
-        f"plain {row['plain_ms']:.5f} ms, scaled_dot_product_attention "
-        f"{lib_ms:.5f} ms (max |diff| {lib_err:.3e}); bound "
-        f"{row['bound_ms']:.5f} ms by {row['bound_by']} ({nb} B, {fl} flop)")
+    log(f"flash_attention at {shape} bf16, {row['body']} body: on the card "
+        f"{row['ms']:.5f} ms ({row['tflops']:.1f} TFLOP/s of causal work, "
+        f"{row['bound_ms'] / row['ms']:.1%} of the bound), plain "
+        f"{row['plain_ms']:.5f} ms, scaled_dot_product_attention "
+        f"{lib_ms:.5f} ms ({row['library_tflops']:.1f} TFLOP/s; max |diff| "
+        f"{lib_err:.3e}); bound {row['bound_ms']:.5f} ms by "
+        f"{row['bound_by']} ({nb} B, {fl} flop)")
     del sets, lib_out
 
     worst = 0.0

@@ -4,20 +4,73 @@
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (body _kernel).
 // q: (B, S, H, hd); k, v: (B, S, KV, hd) with H % KV == 0; query head h
-// reads kv head h / (H / KV).  q is multiplied by 1/sqrt(hd) in f32, the
+// reads kv head h / (H / KV).  Scores are scaled by 1/sqrt(hd) in f32, the
 // softmax runs online with f32 running max m, denominator l and
 // accumulator, and the output (B, S, H, hd) is stored in q's type.
 // Masks: k <= q (causal) and k > q - window (window > 0), positions
-// 0..S-1 for both q and k.
+// 0..S-1 for both q and k; rows and keys past S are masked in the kernel,
+// so S need not be a multiple of a tile.  Inputs are read in their given
+// strides (the head dim contiguous).
 //
 // What bounds it on this card: at phi4-mini's prefill, (4, 1024, 24, 8,
 // 128) in bf16, the causal products are 2.58e10 flops, 26 us at the
 // 989 TFLOP/s bf16 tensor-core rate, against 67 MB of q/k/v/o, 20 us at
-// 3.35 TB/s: operations bound it.  This first kernel does its products
-// with f32 FMAs on the CUDA cores (67 TFLOP/s peak), so it cannot come
-// near that bound; tensor cores (wgmma) and TMA are a later redesign.
+// 3.35 TB/s: operations bound it, so the products must run on the tensor
+// cores.
 //
-// What the design does:
+// Two bodies; the route is a fixed function of (dtype, hd), chosen by the
+// wrapper (kernels/flash_attention.py), with no fallback between them:
+//   bf16, hd 64 or 128  -> tc::attn_kernel (tensor cores, TMA);
+//   f32 at any hd, bf16 at hd 32 -> simt::attn_kernel (f32 FMAs on the CUDA
+//   cores, the first port of this kernel, kept for full-f32 products).
+//
+// tc::attn_kernel, what the design does:
+//  * One block per (128-row q tile, head, batch): two consumer warpgroups
+//    of 64 q rows each (wgmma's M is 64 per warpgroup) and one producer
+//    warpgroup, of which one thread issues the loads.  BQ = 128 lets the
+//    two consumers share every K/V tile that arrives; BK = 128 makes
+//    S = Q K^T one m64n128 product per k16 step.  384 threads start at 168
+//    registers; the producer gives all but 40 back (setmaxnreg) and each
+//    consumer thread takes 232, room for S (64 f32), O (hd/2 f32) and P
+//    (32 bf16 pairs) without spills.
+//  * The producer loads the Q tile once and K/V tiles into a ring of
+//    three shared-memory stages with TMA (cp.async.bulk.tensor, 4-d maps
+//    over (hd, heads, S, B) in the tensors' own strides, built on the
+//    host with cuTensorMapEncodeTiled).  Each stage has a full and an
+//    empty mbarrier: later tiles load while tile j computes.  Rows past S
+//    arrive as zeros (TMA's out-of-range fill).
+//  * 128-byte swizzle throughout: a bf16 row of 64 columns is the swizzle
+//    span, so a row of hd 128 is two 64-column boxes, stored as two
+//    regions of the tile; the wgmma descriptors step across them.
+//  * S = Q K^T: wgmma.m64n128k16 with Q and K from shared memory, both
+//    K-major (hd contiguous).  Scores are scaled in f32 after the product
+//    by scale * log2(e), so the softmax runs on exp2.
+//  * The online softmax runs on the accumulator fragment itself: a row
+//    lives on a quad of lanes, so the row max is two shuffles; the row
+//    sum stays per thread until the epilogue.  Exponents are 2^x on the
+//    special-function unit (ex2.approx), the scale folded into one FMA.
+//  * O += P V: P, converted to bf16 in registers, is the A fragment (the
+//    f32 accumulator layout is the A-register layout); V comes from
+//    shared memory as an N-major B operand (transpose bit set).
+//  * The two consumer warpgroups take the tensor cores in turns (two
+//    named barriers): while one runs its products, the other runs its
+//    softmax.  Turn j issues Q K^T of tile j and P V of tile j - 1 as two
+//    commit groups; as soon as S(j) is in, the softmax of tile j runs
+//    while P V(j - 1) is still on the tensor cores.  So a tile's P waits
+//    in registers for the next turn, and its stage is released one turn
+//    later; three stages keep the next loads in flight meanwhile
+//    (230,456 bytes of shared memory at hd 128).
+//  * Only tiles on the diagonal, at the window's edge or past S run the
+//    mask; tiles wholly above the diagonal or outside the window are
+//    never loaded (a warpgroup skips a shared tile that is wholly masked
+//    for its own rows).  q tiles are handed out longest first, and the
+//    H/KV query heads of one kv head are neighbouring blocks, so their
+//    shared K/V tiles hit L2.
+//  * Epilogue: 1/max(l, 1e-30) in f32, bf16 pairs stored for rows < S.
+//  * A wait on an mbarrier that spins for about 10 s traps, so a fault in
+//    the ring ends the launch with an error instead of hanging the card.
+//
+// simt::attn_kernel, the f32 body:
 //  * One block of 4 warps per (64-row q tile, head, batch).  Tiles are
 //    handed out last-first, so the long causal rows start first.
 //  * The scaled q tile stays in shared memory (f32); the block walks kv
@@ -31,16 +84,23 @@
 //    memory only between those lanes, so one __syncwarp orders it.
 //  * Row strides in shared memory are padded by 4 floats so the 16-byte
 //    reads of q and k rows are free of bank conflicts.
-//  * Rows and keys past S are masked inside the kernel, so S need not be
-//    a multiple of the tile (the Pallas wrapper asserts that it is).
 //  * Shared memory is 117,760 bytes at hd = 128, so the launch sets the
 //    kernel's dynamic shared-memory limit first; a refused launch shows
 //    in the returned error code.
 
-#include <cuda_runtime.h>
+#include <cuda.h>            // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
 
-namespace {
+// ==========================================================================
+// simt::attn_kernel: f32 at any hd, bf16 at hd 32
+// ==========================================================================
+
+namespace simt {
+
 
 struct Strides {
   long long b, s, h;   // elements; the head dim is contiguous
@@ -248,24 +308,648 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
   }
 }
 
-}  // namespace
 
-// Launches on `stream` without synchronising; returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for an unsupported hd).
-// dtype: 0 = f32, 1 = bf16 for q, k, v and o.
-extern "C" int flash_attention_launch(
+}  // namespace simt
+
+// ==========================================================================
+// tc::attn_kernel: bf16 at hd 64 and 128, wgmma + TMA
+// ==========================================================================
+
+namespace tc {
+
+constexpr int BQ = 128;              // q rows of a block: two warpgroups
+constexpr int BK = 128;              // kv rows of a tile
+constexpr int STAGES = 3;            // K/V ring depth
+constexpr int BOX_COLS = 64;         // 128 bytes of bf16: the swizzle span
+constexpr int ROW_BYTES = 128;
+constexpr int CONSUMER_WARPS = 8;
+constexpr int THREADS = 32 * CONSUMER_WARPS + 128;  // + a producer warpgroup
+// registers a thread after the hand-over (setmaxnreg): 384 threads start
+// at 168; the producer warpgroup gives back 128 x 128, which lets the two
+// consumer warpgroups take 256 x 64 more
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+
+template <int HD>
+struct Layout {                      // shared memory, in bytes
+  static constexpr int BOXES = HD / BOX_COLS;         // 64-column regions
+  static constexpr int Q_BYTES = BOXES * BQ * ROW_BYTES;
+  static constexpr int KV_BYTES = BOXES * BK * ROW_BYTES;   // K or V
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int BAR_OFFSET = Q_BYTES + STAGES * STAGE_BYTES;
+  // + the barriers, + slack to align the base to the 1024-byte period of
+  // the 128-byte swizzle
+  static constexpr int BYTES = BAR_OFFSET + (2 * STAGES + 1) * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed; trap after about
+// 10 s of spinning (2^34 cycles) instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  long long t0 = 0;
+  for (int spins = 0;; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (spins == 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34)) asm volatile("trap;");
+  }
+}
+
+// One TMA box of a 4-d map, coordinates innermost first, into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(PENDING) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// 2^x on the special-function unit; 2^-inf = 0
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Named barriers over the two consumer warpgroups (256 threads): one
+// warpgroup syncs, the other arrives.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D(64x128, f32) (+)= A(64x16, smem) * B(16x128, smem), both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D(64x64, f32) += A(64x16, registers) * B(16x64, smem, N-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// D(64x128, f32) += A(64x16, registers) * B(16x128, smem, N-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// One warpgroup's turn on the tensor cores.  It issues S = Q K^T of this
+// tile (QK) and O += P V of the last one (PV) as two commit groups and
+// passes the turn to the other warpgroup; then, once S is in, it runs
+// `softmax` on it while P V is still on the tensor cores, and waits for P V.
+// O is rescaled to the last tile's running max before P V joins it.
+template <int HD, bool PV, bool QK, class Softmax>
+__device__ __forceinline__ void turn(float (&o_acc)[HD / 2],
+                                     uint32_t (&p)[BK / 4], uint32_t v_addr,
+                                     float corr0, float corr1,
+                                     float (&s_acc)[BK / 2], uint32_t q_addr,
+                                     uint32_t k_addr, int their_turn,
+                                     Softmax&& softmax) {
+  if constexpr (PV) {
+#pragma unroll
+    for (int t = 0; t < HD / 8; ++t) {
+      o_acc[4 * t] *= corr0;
+      o_acc[4 * t + 1] *= corr0;
+      o_acc[4 * t + 2] *= corr1;
+      o_acc[4 * t + 3] *= corr1;
+    }
+  }
+  fence_regs(o_acc);
+  fence_regs(p);
+  fence_regs(s_acc);
+  wgmma_fence();
+  if constexpr (QK) {
+    // hd / 16 steps of k16; steps 4c..4c+3 read box c, each 32 bytes
+    // further into the swizzled 128-byte rows
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t step = (kk % 4) * 32;
+      wgmma_ss_n128(
+          s_acc,
+          desc_sw128(q_addr + (kk / 4) * BQ * ROW_BYTES + step, 16, 1024),
+          desc_sw128(k_addr + (kk / 4) * BK * ROW_BYTES + step, 16, 1024),
+          kk > 0);
+    }
+    wgmma_commit();
+  }
+  if constexpr (PV) {
+    // V's 16-row k16 steps are 2048 bytes apart, its 8-row groups 1024
+    // bytes (SBO), its two 64-column boxes (hd 128) one region apart (LBO)
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t vd = desc_sw128(v_addr + kk * 16 * ROW_BYTES,
+                                     BK * ROW_BYTES, 1024);
+      if constexpr (HD == 64)
+        wgmma_rs_n64(o_acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                     p[4 * kk + 3], vd);
+      else
+        wgmma_rs_n128(o_acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                      p[4 * kk + 3], vd);
+    }
+    wgmma_commit();
+  }
+  named_arrive(their_turn);
+  if constexpr (QK) {
+    wgmma_wait<PV ? 1 : 0>();
+    fence_regs(s_acc);
+    softmax();
+  }
+  wgmma_wait<0>();
+  fence_regs(o_acc);
+  fence_regs(p);
+  fence_regs(s_acc);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_kernel(const __grid_constant__ CUtensorMap tmq,
+            const __grid_constant__ CUtensorMap tmk,
+            const __grid_constant__ CUtensorMap tmv,
+            __nv_bfloat16* __restrict__ o, int S, int B, int H, int groups,
+            int causal, int window, float scale_log2) {
+  using L = Layout<HD>;
+  constexpr int NS = BK / 2, NO = HD / 2;   // accumulator floats a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sQ = smem;
+  uint8_t* sKV = smem + L::Q_BYTES;        // stage s: K, then V
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFFSET);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+
+  // longest q tiles first; the query heads of one kv head side by side
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / (B * H));
+  const int bh = static_cast<int>(blockIdx.x % (B * H));
+  const int b = bh / H, h = bh % H, kvh = h / groups;
+  const int q0 = qt * BQ;
+  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int n_tiles = (kv_end - kv_begin + BK - 1) / BK;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMER_WARPS) {            // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(PRODUCER_REGS));
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      mbar_expect_tx(qbar, L::Q_BYTES);
+      for (int c = 0; c < L::BOXES; ++c)
+        tma_load(sQ + c * BQ * ROW_BYTES, &tmq, qbar, c * BOX_COLS, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES, k0 = kv_begin + j * BK;
+        mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], L::STAGE_BYTES);
+        uint8_t* kS = sKV + s * L::STAGE_BYTES;
+        for (int c = 0; c < L::BOXES; ++c) {
+          tma_load(kS + c * BK * ROW_BYTES, &tmk, &full[s], c * BOX_COLS,
+                   kvh, k0, b);
+          tma_load(kS + L::KV_BYTES + c * BK * ROW_BYTES, &tmv, &full[s],
+                   c * BOX_COLS, kvh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns q rows row_lo .. row_lo + 63; this thread
+  // holds rows r0 and r0 + 8, columns 8 t + cq and 8 t + cq + 1
+  const int wg = warp / 4;
+  const int row_lo = q0 + 64 * wg, row_hi = row_lo + 63;
+  const int r0 = row_lo + 16 * (warp % 4) + lane / 4, r1 = r0 + 8;
+  const int cq = 2 * (lane % 4);
+  const bool live = row_lo < S;
+  const uint32_t q_addr = smem_u32(sQ) + 64 * wg * ROW_BYTES;
+
+  float o_acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o_acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;   // raw scores
+  float corr0 = 0.f, corr1 = 0.f;   // O's rescale before the next P V
+  float s_acc[NS];
+  uint32_t p[NS / 2];          // P of the last tile, bf16, not yet in O
+  bool have_p = false;
+  uint32_t v_prev = 0;         // that tile's V
+  int k0 = 0;
+
+  // The online softmax of one tile, in place on its scores: mask where
+  // the tile needs it, the row max over the quad, the rescale of the row
+  // sums, and p = 2^(s scale_log2 - max scale_log2) in the log2 domain
+  // (a row with no valid key yet keeps p = 0 and corr = 0).
+  auto softmax = [&]() {
+    if (k0 + BK > S || (causal && k0 + BK - 1 > row_lo) ||
+        (window > 0 && k0 <= row_hi - window)) {
+      // key k0 + cq + c is kept iff lo <= c <= hi (c is a constant below)
+      const int base = k0 + cq;
+      int hi0 = S - 1 - base, hi1 = hi0, lo0 = -BK, lo1 = -BK;
+      if (causal) {
+        hi0 = min(hi0, r0 - base);
+        hi1 = min(hi1, r1 - base);
+      }
+      if (window > 0) {
+        lo0 = r0 - window + 1 - base;
+        lo1 = r1 - window + 1 - base;
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int c = 8 * (i / 4) + (i & 1);
+        const bool ok = (i & 2) ? (c >= lo1 && c <= hi1)
+                                : (c >= lo0 && c <= hi0);
+        s_acc[i] = ok ? s_acc[i] : -INFINITY;
+      }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < NS / 4; ++t) {
+      mx0 = fmaxf(mx0, fmaxf(s_acc[4 * t], s_acc[4 * t + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s_acc[4 * t + 2], s_acc[4 * t + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float ms0 = mn0 == -INFINITY ? 0.f : mn0 * scale_log2;
+    const float ms1 = mn1 == -INFINITY ? 0.f : mn1 * scale_log2;
+    corr0 = fast_exp2(m0 * scale_log2 - ms0);
+    corr1 = fast_exp2(m1 * scale_log2 - ms1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int t = 0; t < NS / 4; ++t) {
+      s_acc[4 * t] = fast_exp2(fmaf(s_acc[4 * t], scale_log2, -ms0));
+      s_acc[4 * t + 1] = fast_exp2(fmaf(s_acc[4 * t + 1], scale_log2, -ms0));
+      s_acc[4 * t + 2] = fast_exp2(fmaf(s_acc[4 * t + 2], scale_log2, -ms1));
+      s_acc[4 * t + 3] = fast_exp2(fmaf(s_acc[4 * t + 3], scale_log2, -ms1));
+      sum0 += s_acc[4 * t] + s_acc[4 * t + 1];
+      sum1 += s_acc[4 * t + 2] + s_acc[4 * t + 3];
+    }
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+  };
+
+  // The two warpgroups take the tensor cores in turns (named barriers 1
+  // and 2): while one runs its products, the other runs its softmax.
+  // Phase j issues Q K^T of tile j and P V of tile j - 1; phase n_tiles
+  // issues the last P V alone.  Warpgroup 0 goes first, and takes one
+  // more turn at the end, which matches warpgroup 1's last hand-over.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(CONSUMER_REGS));
+  const int my_turn = 1 + wg, their_turn = 2 - wg;
+  if (wg == 1) named_arrive(1);
+  mbar_wait(qbar, 0);
+  for (int j = 0; j <= n_tiles; ++j) {
+    const int s = j % STAGES;
+    k0 = kv_begin + j * BK;
+    const bool run = j < n_tiles && live && !(causal && k0 > row_hi) &&
+                     !(window > 0 && k0 + BK - 1 <= row_lo - window);
+    if (j < n_tiles) mbar_wait(&full[s], (j / STAGES) & 1);
+    __syncwarp();
+    const uint32_t k_addr = smem_u32(sKV + s * L::STAGE_BYTES);
+    named_sync(my_turn);
+    // each branch issues its products as one whole block: wgmma under a
+    // condition inside a block makes ptxas serialize them (C7520)
+    if (have_p && run)
+      turn<HD, true, true>(o_acc, p, v_prev, corr0, corr1, s_acc, q_addr,
+                           k_addr, their_turn, softmax);
+    else if (have_p)
+      turn<HD, true, false>(o_acc, p, v_prev, corr0, corr1, s_acc, q_addr,
+                            k_addr, their_turn, softmax);
+    else if (run)
+      turn<HD, false, true>(o_acc, p, v_prev, corr0, corr1, s_acc, q_addr,
+                            k_addr, their_turn, softmax);
+    else
+      named_arrive(their_turn);
+    if (j > 0) {                 // the last tile's K and V are done with
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(j - 1) % STAGES]);
+    }
+    have_p = run;
+    if (run) {
+      // P in bf16, laid out as the A fragments of the k16 steps of P V:
+      // step kk takes p[4 kk .. 4 kk + 3]
+#pragma unroll
+      for (int t = 0; t < NS / 4; ++t) {
+        p[2 * t] = pack_bf16(s_acc[4 * t], s_acc[4 * t + 1]);
+        p[2 * t + 1] = pack_bf16(s_acc[4 * t + 2], s_acc[4 * t + 3]);
+      }
+      v_prev = k_addr + L::KV_BYTES;
+    }
+  }
+
+  if (wg == 0) named_sync(my_turn);
+
+  // epilogue: the row sums over the quad, normalise, store rows < S
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const long long row_stride = static_cast<long long>(H) * HD;
+  __nv_bfloat16* ob = o + static_cast<long long>(b) * S * row_stride +
+                      static_cast<long long>(h) * HD + cq;
+  if (r0 < S) {
+    __nv_bfloat16* orow = ob + r0 * row_stride;
+#pragma unroll
+    for (int t = 0; t < NO / 4; ++t)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * t) =
+          __floats2bfloat162_rn(o_acc[4 * t] * inv0, o_acc[4 * t + 1] * inv0);
+  }
+  if (r1 < S) {
+    __nv_bfloat16* orow = ob + r1 * row_stride;
+#pragma unroll
+    for (int t = 0; t < NO / 4; ++t)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * t) = __floats2bfloat162_rn(
+          o_acc[4 * t + 2] * inv1, o_acc[4 * t + 3] * inv1);
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime, so the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A map's arguments, as the wrapper computes them (flash_attention.py,
+// tensor_map_args): dims (hd, heads, S, B), byte strides of heads, S and
+// B, box (64, 1, rows, 1).
+struct MapArgs {
+  long long dim[4], stride[3], box[4];
+};
+static_assert(sizeof(MapArgs) == 11 * sizeof(long long), "11 values");
+
+constexpr int ENCODE_ERROR = 10000;   // + the driver's CUresult
+
+bool map_matches(const MapArgs& a, int hd, int heads, int S, int B,
+                 int rows) {
+  return a.dim[0] == hd && a.dim[1] == heads && a.dim[2] == S &&
+         a.dim[3] == B && a.box[0] == BOX_COLS && a.box[1] == 1 &&
+         a.box[2] == rows && a.box[3] == 1;
+}
+
+int encode(CUtensorMap* map, const void* base, const MapArgs& a) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  cuuint64_t dim[4], stride[3];
+  cuuint32_t box[4], elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    dim[i] = static_cast<cuuint64_t>(a.dim[i]);
+    box[i] = static_cast<cuuint32_t>(a.box[i]);
+  }
+  for (int i = 0; i < 3; ++i) stride[i] = static_cast<cuuint64_t>(a.stride[i]);
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dim, stride, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR + static_cast<int>(r);
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int S, int H, int KV, int causal, int window, float scale,
+           const MapArgs& mq, const MapArgs& mk, const MapArgs& mv,
+           cudaStream_t stream) {
+  if (!map_matches(mq, HD, H, S, B, BQ) || !map_matches(mk, HD, KV, S, B, BK)
+      || !map_matches(mv, HD, KV, S, B, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, q, mq);
+  if (err == 0) err = encode(&tk, k, mk);
+  if (err == 0) err = encode(&tv, v, mv);
+  if (err != 0) return err;
+  constexpr int bytes = Layout<HD>::BYTES;
+  static bool attr_set = false;      // once per instantiation
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  const long long blocks = static_cast<long long>((S + BQ - 1) / BQ) * B * H;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  attn_kernel<HD><<<static_cast<unsigned>(blocks), THREADS, bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, B, H, H / KV, causal,
+      window, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+// Both entries launch on `stream` without synchronising and return
+// cudaGetLastError() after the launch, cudaErrorInvalidValue for a shape
+// or type they do not take, or (tc) 10000 + the driver's CUresult when a
+// tensor map cannot be encoded.
+
+// The SIMT body.  dtype: 0 = f32, 1 = bf16 for q, k, v and o; strides in
+// elements.
+extern "C" int flash_attention_simt_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S,
     int H, int KV, int hd, int dtype, int causal, int window, float scale,
     long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, void* stream) {
-  const Strides sq{qsb, qss, qsh}, sk{ksb, kss, ksh}, sv{vsb, vss, vsh};
+  const simt::Strides sq{qsb, qss, qsh}, sk{ksb, kss, ksh}, sv{vsb, vss, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(hd, q, k, v, o, B, S, H, KV, sq, sk, sv, causal,
-                           window, scale, st);
+    return simt::dispatch<float>(hd, q, k, v, o, B, S, H, KV, sq, sk, sv,
+                                 causal, window, scale, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(hd, q, k, v, o, B, S, H, KV, sq, sk, sv,
-                                   causal, window, scale, st);
+    return simt::dispatch<__nv_bfloat16>(hd, q, k, v, o, B, S, H, KV, sq, sk,
+                                         sv, causal, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core body, bf16 only; q_map, k_map, v_map each hold 11 values:
+// dims[4], byte strides[3], box[4] (see MapArgs).  o is (B, S, H, hd),
+// contiguous.
+extern "C" int flash_attention_tc_launch(
+    const void* q, const void* k, const void* v, void* o, int B, int S,
+    int H, int KV, int hd, int causal, int window, float scale,
+    const long long* q_map, const long long* k_map, const long long* v_map,
+    void* stream) {
+  tc::MapArgs mq, mk, mv;
+  memcpy(&mq, q_map, sizeof mq);
+  memcpy(&mk, k_map, sizeof mk);
+  memcpy(&mv, v_map, sizeof mv);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 64: return tc::launch<64>(q, k, v, o, B, S, H, KV, causal, window,
+                                   scale, mq, mk, mv, st);
+    case 128: return tc::launch<128>(q, k, v, o, B, S, H, KV, causal, window,
+                                     scale, mq, mk, mv, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -3,7 +3,8 @@
 Each source ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and
 compiles on its own into ``build/kernels/<name>-<hash>.so`` at the root of
 the checkout (``build/`` is git-ignored), where ``<hash>`` covers the
-source and the flags: a library is rebuilt only when its source changes.
+source, every header ``csrc/*.cuh`` and the flags: a library is rebuilt
+only when one of them changes.
 The library is loaded with ``ctypes``.  Nothing is built when this module
 is imported; ``library(name)`` builds at first use, and ``build_all()``
 starts one ``nvcc`` per source, all at once.  This is the one module that
@@ -44,9 +45,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -4,8 +4,20 @@
 
 Causal GQA self-attention with an optional sliding window: q (B, S, H,
 hd), k and v (B, S, KV, hd), in f32 or bf16, hd in {32, 64, 128}; the
-output is (B, S, H, hd) in q's type.  The library is built with ``nvcc``
-at first use (``build.py``); this module imports on hosts without a card.
+output is (B, S, H, hd) in q's type.  The source has two bodies, and the
+body is a fixed function of (dtype, hd) (``route``), with no fallback from
+one to the other:
+
+- ``"tc"``: bf16 at hd 64 and 128.  ``wgmma`` on the tensor cores; Q and
+  the K/V tiles arrive by TMA into a ring of shared-memory stages.  TMA
+  needs 16-byte-aligned base addresses and strides
+  (``check_tma_alignment``); the tensor maps are encoded in C from the
+  arguments ``tensor_map_args`` computes.
+- ``"simt"``: f32 at every hd, and bf16 at hd 32.  f32 FMAs on the CUDA
+  cores, so f32 inputs get full-f32 products.
+
+The library is built with ``nvcc`` at first use (``build.py``); this module
+imports on hosts without a card.
 """
 
 from __future__ import annotations
@@ -20,15 +32,37 @@ from . import build
 from .launches import LAUNCHES
 
 HEAD_DIMS = (32, 64, 128)
+TC_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the tensor-core body's tiles (namespace tc of the source); its entry
+# refuses maps whose boxes differ from these
+BLOCK_Q = 128
+BLOCK_K = 128
+BOX_COLS = 64           # 128 bytes of bf16: the span of the 128-byte swizzle
+TMA_ALIGN = 16          # bytes, for base addresses and strides
+
+
+def route(dtype, hd: int) -> str:
+    """The body that computes (dtype, hd): ``"tc"`` or ``"simt"``."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "simt"
 
 
 @functools.cache
-def _entry():
-    fn = build.library("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] + [ctypes.c_longlong] * 9
-                   + [ctypes.c_void_p])
+def _entry(body: str):
+    lib = build.library("flash_attention")
+    if body == "tc":
+        fn = lib.flash_attention_tc_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_float] + [ctypes.c_void_p] * 4)
+    else:
+        fn = lib.flash_attention_simt_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_float] + [ctypes.c_longlong] * 9
+                       + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -63,18 +97,58 @@ def _check(q, k, v):
     return B, S, H, KV, hd
 
 
+def check_tma_alignment(q, k, v):
+    """Raise unless each tensor's base address and the byte strides of its
+    batch, sequence and head dims (those of size > 1) are multiples of 16,
+    as TMA requires."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"{name}'s base address is not {TMA_ALIGN}-byte "
+                             f"aligned, which TMA needs")
+        for i in range(3):
+            if t.shape[i] > 1 and (t.stride(i) * t.element_size()) % TMA_ALIGN:
+                raise ValueError(f"{name}'s stride {t.stride(i)} in dim {i} "
+                                 f"is not a multiple of {TMA_ALIGN} bytes, "
+                                 f"which TMA needs")
+
+
+def tensor_map_args(t, rows: int) -> tuple:
+    """The 11 arguments of a 4-d TMA map over ``t`` (B, S, heads, hd),
+    innermost first: dims (hd, heads, S, B), the byte strides of heads, S
+    and B, and the box (64, 1, rows, 1) — one 64-column box of ``rows``
+    sequence positions of one head.  A dim of size 1 is never stepped
+    over, so its stride is given as if the tensor were packed there."""
+    B, S, n, hd = t.shape
+    es = t.element_size()
+    strides, packed = [], hd * es
+    for size, i in ((n, 2), (S, 1), (B, 0)):
+        strides.append(t.stride(i) * es if size > 1 else packed)
+        packed = strides[-1] * size
+    return (hd, n, S, B, *strides, BOX_COLS, 1, rows, 1)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Launch the kernel on the current stream without synchronising.
     Returns (B, S, H, hd) in q.dtype; matches ``ref.flash_attention_ref``."""
     B, S, H, KV, hd = _check(q, k, v)
+    body = route(q.dtype, hd)
+    if body == "tc":
+        check_tma_alignment(q, k, v)
+        maps = [(ctypes.c_longlong * 11)(*tensor_map_args(t, rows))
+                for t, rows in ((q, BLOCK_Q), (k, BLOCK_K), (v, BLOCK_K))]
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        code = _entry()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, H, KV, hd, _DTYPES[q.dtype], int(bool(causal)),
-            int(window), 1.0 / math.sqrt(hd),
-            *(t.stride(i) for t in (q, k, v) for i in (0, 1, 2)),
-            build.stream_handle(q.device))
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        stream = build.stream_handle(q.device)
+        if body == "tc":
+            code = _entry("tc")(*ptrs, B, S, H, KV, hd, int(bool(causal)),
+                                int(window), 1.0 / math.sqrt(hd), *maps,
+                                stream)
+        else:
+            code = _entry("simt")(
+                *ptrs, B, S, H, KV, hd, _DTYPES[q.dtype], int(bool(causal)),
+                int(window), 1.0 / math.sqrt(hd),
+                *(t.stride(i) for t in (q, k, v) for i in (0, 1, 2)), stream)
     build.check_launch(code, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out

@@ -315,6 +315,153 @@ def test_flash_attention_kernel_reads_strided_inputs_on_card(cuda):
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
+# --------------------------------------------------------------------------
+# K3's two bodies: the route by (dtype, hd), the TMA checks and tensor-map
+# arguments on the host, and the tensor-core body on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,hd,body", [
+    ("float32", 32, "simt"), ("float32", 64, "simt"),
+    ("float32", 128, "simt"), ("bfloat16", 32, "simt"),
+    ("bfloat16", 64, "tc"), ("bfloat16", 128, "tc")])
+def test_flash_attention_route_is_fixed_by_dtype_and_head_dim(dtype, hd,
+                                                              body):
+    assert FA.route(getattr(torch, dtype), hd) == body
+
+
+def test_flash_attention_route_refuses_what_no_body_takes():
+    with pytest.raises(ValueError, match="head dim"):
+        FA.route(torch.bfloat16, 96)
+    with pytest.raises(TypeError):
+        FA.route(torch.float16, 64)
+
+
+def _bf16(*shape, device="cpu"):
+    return torch.zeros(*shape, dtype=torch.bfloat16, device=device)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_tma_alignment_check_accepts_aligned_tensors_and_views(device):
+    q, k, v = (_bf16(2, 70, n, 64, device=device) for n in (4, 2, 2))
+    FA.check_tma_alignment(q, k, v)
+    qkv = _bf16(2, 70, 8, 64, device=device)        # one fused projection
+    FA.check_tma_alignment(qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:])
+    one = _bf16(1, 1, 1, 64, device=device)[:, :, :, :]
+    FA.check_tma_alignment(one, one, one)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_tma_alignment_check_refuses_odd_offsets_and_strides(device):
+    ok = _bf16(1, 16, 2, 64, device=device)
+    flat = _bf16(1 + 16 * 2 * 64, device=device)
+    odd_base = flat[1:].view(1, 16, 2, 64)             # 2-byte offset
+    with pytest.raises(ValueError, match="base address"):
+        FA.check_tma_alignment(odd_base, ok, ok)
+    wide = _bf16(1, 16, 2, 68, device=device)[..., :64]   # 136-byte rows
+    with pytest.raises(ValueError, match="stride"):
+        FA.check_tma_alignment(ok, wide, ok)
+    gapped = _bf16(1, 16, 3, 64, device=device)[:, :, :, :].as_strided(
+        (1, 16, 2, 64), (16 * 2 * 68, 2 * 68, 68, 1))
+    with pytest.raises(ValueError, match="stride"):
+        FA.check_tma_alignment(ok, ok, gapped)
+
+
+def test_tensor_map_args_give_dims_byte_strides_and_box():
+    q = _bf16(4, 1024, 24, 128)
+    assert FA.tensor_map_args(q, FA.BLOCK_Q) == (
+        128, 24, 1024, 4, 256, 24 * 256, 1024 * 24 * 256, 64, 1, 128, 1)
+    qkv = _bf16(2, 70, 8, 64)
+    k = qkv[:, :, 4:6]
+    assert FA.tensor_map_args(k, FA.BLOCK_K) == (
+        64, 2, 70, 2, 128, 8 * 128, 70 * 8 * 128, 64, 1, 128, 1)
+    # a dim of size 1 is never stepped over: packed strides stand in
+    odd = _bf16(1, 5, 1, 64).as_strided((1, 5, 1, 64), (3, 64, 7, 1))
+    assert FA.tensor_map_args(odd, 128)[4:7] == (128, 128, 640)
+    assert (FA.BLOCK_Q, FA.BLOCK_K, FA.BOX_COLS) == (128, 128, 64)
+
+
+def test_build_hash_covers_headers_in_csrc(monkeypatch, tmp_path):
+    """A changed header rebuilds every library (no stale reuse)."""
+    from repro_torch.kernels import build
+    (tmp_path / "k.cu").write_text("// source\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    bare = build.library_path("k")
+    (tmp_path / "common.cuh").write_text("// header 1\n")
+    with_header = build.library_path("k")
+    (tmp_path / "common.cuh").write_text("// header 2\n")
+    changed = build.library_path("k")
+    assert len({bare, with_header, changed}) == 3
+    assert build.library_path("k") == changed
+
+
+TC_S = [1, 63, 64, 65, 127, 128, 129, 1000, 1024, 2048]
+
+
+def _tc_check(cuda, b, s, h, kv, hd, win, causal=True, seed=0):
+    q, k, v = (t.to(torch.bfloat16) for t in
+               _t(*_attn_inputs(b, s, h, kv, hd, seed), device=cuda))
+    assert FA.route(q.dtype, hd) == "tc"
+    before = LAUNCHES["flash_attention"]
+    got = FA.flash_attention(q, k, v, causal=causal, window=win)
+    assert LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=win)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, h, hd)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("win", [0, 1, 100, 128])
+@pytest.mark.parametrize("s", TC_S)
+@pytest.mark.parametrize("hd", [64, 128])
+def test_tc_flash_attention_matches_plain_on_card(cuda, hd, s, win):
+    _tc_check(cuda, 2, s, 4, 2, hd, win)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kv", [(4, 4), (6, 2), (16, 2), (5, 1)],
+                         ids=["groups1", "groups3", "groups8", "mqa"])
+@pytest.mark.parametrize("s", [129, 1000])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_tc_flash_attention_kv_groups_on_card(cuda, hd, s, h, kv):
+    _tc_check(cuda, 1, s, h, kv, hd, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 65, 1000])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_tc_flash_attention_without_causal_mask_on_card(cuda, hd, s):
+    _tc_check(cuda, 2, s, 4, 2, hd, 0, causal=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_tc_flash_attention_reads_fused_projection_views_on_card(cuda, hd,
+                                                                 causal):
+    """bf16 q/k/v as strided views of one fused projection."""
+    qkv = torch.randn(2, 200, 4 + 2 + 2, hd, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    before = LAUNCHES["flash_attention"]
+    got = FA.flash_attention(q, k, v, causal=causal)
+    assert LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_tc_flash_attention_refuses_unaligned_views_on_card(cuda):
+    flat = torch.zeros(1 + 2 * 64 * 4 * 64, device=cuda, dtype=torch.bfloat16)
+    q = flat[1:].view(2, 64, 4, 64)
+    ok = torch.zeros(2, 64, 4, 64, device=cuda, dtype=torch.bfloat16)
+    before = LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="base address"):
+        FA.flash_attention(q, ok, ok)
+    assert LAUNCHES["flash_attention"] == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,h,hd", WKV_CASES + [(4, 1024, 40, 64),
