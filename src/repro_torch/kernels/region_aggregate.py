@@ -9,18 +9,29 @@ Replaces the Pallas TPU kernels ``repro/kernels/region_aggregate.py``:
     C′    = where(m, g, C)
     x′    = x − lr·ḡ / max(h, μ)       (ranl_update only)
 
-What bounds it on this card: memory bandwidth.  The work is a handful of
-flops per element of G, M and C, far below the ~20 flops per byte the
-H100 needs before arithmetic, not HBM, is the limit.  So the design moves
-each byte once: one program per ``BLOCK_D`` slice of coordinates walks
-the N worker rows in a register loop (one kernel body; the ``FUSED``
-constexpr compiles the ranl_update variant), accumulating count, Σ g·m and Σ C
-while it writes row i of C′ in the same iteration; then it finishes ḡ
-(and x′) for the slice.  G, M and C are read once and C′ written once:
-(13N + 4)·D bytes for region_aggregate and (13N + 12)·D for ranl_update.
-The mask is read as one byte per entry (the bool tensor viewed as uint8)
-instead of the Pallas wrapper's f32 cast.  The grid needs no padding:
-masked loads and stores handle the ragged edge of D.
+What bounds it on this card: memory bandwidth at large D, the latency of
+one DRAM round trip at the main path's D.  The work is a handful of flops
+per element of G, M and C, far below the ~20 flops per byte the H100
+needs before arithmetic, not HBM, is the limit.  So the design moves each
+byte once, and keeps as many of them in flight as the shape allows.  One
+kernel body (the ``FUSED`` constexpr compiles the ranl_update variant)
+has two ways through a ``BLOCK_D`` slice of coordinates, fixed by
+``_launch_config``:
+
+- all rows at once (N ≤ 32, D below 2¹⁸): one ``[BLOCK_N, BLOCK_D]`` tile
+  of G, M and C (BLOCK_N the next power of two ≥ N, rows masked), so every
+  row's loads are in flight together; C′ is stored as one tile and count,
+  Σ g·m and Σ C are sums over the tile's rows.  BLOCK_D is narrow enough
+  that the grid has about two programs for each of the 132 SMs;
+- the row loop (large D, or N > 32): 1024-wide slices, each program
+  walking the N rows in a register loop and writing row i of C′ as it
+  goes; at large D the grid alone keeps HBM busy.
+
+Then it finishes ḡ (and x′) for the slice.  G, M and C are read once and
+C′ written once: (13N + 4)·D bytes for region_aggregate and (13N + 12)·D
+for ranl_update.  The mask is read as one byte per entry (the bool tensor
+viewed as uint8) instead of the Pallas wrapper's f32 cast.  The grid
+needs no padding: masked loads and stores handle the ragged edges.
 
 Triton is imported, and the kernels are compiled, on the first launch;
 the module itself imports on hosts without Triton or a GPU.  Compiled
@@ -38,29 +49,43 @@ from .launches import LAUNCHES
 
 def _aggregate_kernel(g_ptr, m_ptr, c_ptr, out_c_ptr, out_ptr, x_ptr, h_ptr,
                       N, D, mu, lr, FUSED: tl.constexpr,
-                      BLOCK_D: tl.constexpr):
-    """One BLOCK_D slice of coordinates: walk the N worker rows, write C′
-    row by row, then store ḡ (``FUSED`` off) or x′ (``FUSED`` on)."""
+                      BLOCK_N: tl.constexpr, BLOCK_D: tl.constexpr):
+    """One BLOCK_D slice of coordinates: the N worker rows as one tile
+    (``BLOCK_N`` > 0) or in a loop (``BLOCK_N`` = 0), C′ written, then ḡ
+    (``FUSED`` off) or x′ (``FUSED`` on) stored."""
     offs = tl.program_id(0) * BLOCK_D + tl.arange(0, BLOCK_D)
     valid = offs < D
-    g_row, m_row, c_row, o_row = (g_ptr + offs, m_ptr + offs, c_ptr + offs,
-                                  out_c_ptr + offs)
-    count = tl.zeros([BLOCK_D], dtype=tl.float32)
-    fresh = tl.zeros([BLOCK_D], dtype=tl.float32)
-    stale = tl.zeros([BLOCK_D], dtype=tl.float32)
-    for _ in range(N):
-        g = tl.load(g_row, mask=valid, other=0.0)
-        m = tl.load(m_row, mask=valid, other=0) != 0
-        c = tl.load(c_row, mask=valid, other=0.0)
+    if BLOCK_N > 0:
+        rows = tl.arange(0, BLOCK_N)
+        idx = rows[:, None] * D + offs[None, :]
+        ok = (rows[:, None] < N) & valid[None, :]
+        g = tl.load(g_ptr + idx, mask=ok, other=0.0)
+        m = tl.load(m_ptr + idx, mask=ok, other=0) != 0
+        c = tl.load(c_ptr + idx, mask=ok, other=0.0)
+        tl.store(out_c_ptr + idx, tl.where(m, g, c), mask=ok)
         mf = m.to(tl.float32)
-        count += mf
-        fresh += g * mf
-        stale += c
-        tl.store(o_row, tl.where(m, g, c), mask=valid)
-        g_row += D
-        m_row += D
-        c_row += D
-        o_row += D
+        count = tl.sum(mf, axis=0)
+        fresh = tl.sum(g * mf, axis=0)
+        stale = tl.sum(c, axis=0)
+    else:
+        g_row, m_row, c_row, o_row = (g_ptr + offs, m_ptr + offs,
+                                      c_ptr + offs, out_c_ptr + offs)
+        count = tl.zeros([BLOCK_D], dtype=tl.float32)
+        fresh = tl.zeros([BLOCK_D], dtype=tl.float32)
+        stale = tl.zeros([BLOCK_D], dtype=tl.float32)
+        for _ in range(N):
+            g = tl.load(g_row, mask=valid, other=0.0)
+            m = tl.load(m_row, mask=valid, other=0) != 0
+            c = tl.load(c_row, mask=valid, other=0.0)
+            mf = m.to(tl.float32)
+            count += mf
+            fresh += g * mf
+            stale += c
+            tl.store(o_row, tl.where(m, g, c), mask=valid)
+            g_row += D
+            m_row += D
+            c_row += D
+            o_row += D
     gbar = tl.where(count > 0, fresh / tl.maximum(count, 1.0), stale / N)
     if FUSED:
         x = tl.load(x_ptr + offs, mask=valid, other=0.0)
@@ -79,10 +104,27 @@ def _kernel():
     return triton.jit(_aggregate_kernel)
 
 
-def _launch_config(D: int):
-    """(BLOCK_D, num_warps): wide blocks when D fills the card, narrow
-    ones so a small D still spreads over several SMs."""
-    return (1024, 4) if D >= (1 << 18) else (128, 1)
+TILE_MAX_N = 32             # more rows take the row loop: the tile's
+                            # registers are sized for 32, and no path has more
+TILE_MAX_D = 1 << 18        # from here on the row loop fills the card
+TILE_ELEMS = 4096           # largest tile: 32 f32 registers a thread at 4 warps
+MIN_PROGRAMS = 256          # about two for each of 132 SMs
+
+
+def _launch_config(N: int, D: int):
+    """(BLOCK_N, BLOCK_D, num_warps).  Below ``TILE_MAX_D`` (and N ≤ 32):
+    all rows as one tile, BLOCK_D the widest power of two from 16 up that
+    still gives ``MIN_PROGRAMS`` programs, within ``TILE_ELEMS`` elements a
+    tile, one warp per 512 of them.  Else the row loop (BLOCK_N = 0) over
+    1024-wide slices with 4 warps."""
+    if D >= TILE_MAX_D or N > TILE_MAX_N:
+        return 0, 1024, 4
+    block_n = max(2, 1 << (N - 1).bit_length())
+    block_d = 16
+    while (block_d * 2 * block_n <= TILE_ELEMS
+           and -(-D // (block_d * 2)) >= MIN_PROGRAMS):
+        block_d *= 2
+    return block_n, block_d, max(1, min(4, block_n * block_d // 512))
 
 
 def _check(grads, masks, memory, vectors=()):
@@ -119,10 +161,11 @@ def region_aggregate(grads, masks, memory):
     N, D = _check(grads, masks, memory)
     out_g = torch.empty((D,), dtype=torch.float32, device=grads.device)
     out_c = torch.empty_like(memory)
-    block, warps = _launch_config(D)
+    block_n, block, warps = _launch_config(N, D)
     _kernel()[((D + block - 1) // block,)](
         grads, masks.view(torch.uint8), memory, out_c, out_g, out_g, out_g,
-        N, D, 0.0, 0.0, FUSED=False, BLOCK_D=block, num_warps=warps)
+        N, D, 0.0, 0.0, FUSED=False, BLOCK_N=block_n, BLOCK_D=block,
+        num_warps=warps)
     LAUNCHES["region_aggregate"] += 1
     return out_g, out_c
 
@@ -136,10 +179,10 @@ def ranl_update(params, hdiag, grads, masks, memory, *, mu: float,
                   (("params", params), ("hdiag", hdiag)))
     out_x = torch.empty_like(params)
     out_c = torch.empty_like(memory)
-    block, warps = _launch_config(D)
+    block_n, block, warps = _launch_config(N, D)
     _kernel()[((D + block - 1) // block,)](
         grads, masks.view(torch.uint8), memory, out_c, out_x, params, hdiag,
-        N, D, float(mu), float(lr), FUSED=True, BLOCK_D=block,
-        num_warps=warps)
+        N, D, float(mu), float(lr), FUSED=True, BLOCK_N=block_n,
+        BLOCK_D=block, num_warps=warps)
     LAUNCHES["ranl_update"] += 1
     return out_x, out_c

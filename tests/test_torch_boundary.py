@@ -25,7 +25,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "attn_ab.py")]
+    out = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "kernel_ab.py")]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -9,6 +9,8 @@ against the reference, 1e-5/1e-6 kernel against plain on the card).
 Attention and the wkv recurrence take their sums in another order too:
 those of tests/test_kernels.py, 2e-4 in f32 and 2e-2 in bf16."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -134,7 +136,9 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", MASKS)
-@pytest.mark.parametrize("n,d", SHAPES + [(32, 4096), (32, 8192), (32, (1 << 16) + 37)])
+@pytest.mark.parametrize("n,d", SHAPES + [
+    (32, 4096), (32, 8192), (32, (1 << 16) + 37), (1, 4096), (7, 4096),
+    (31, 4096)])
 def test_triton_kernels_match_plain_on_card(cuda, n, d, kind):
     g, m, c, x, h = _t(*_inputs(n, d, kind), device=cuda)
     before = dict(LAUNCHES)
@@ -148,6 +152,29 @@ def test_triton_kernels_match_plain_on_card(cuda, n, d, kind):
     assert torch.equal(got[1], want[1])
     assert LAUNCHES["region_aggregate"] == before["region_aggregate"] + 1
     assert LAUNCHES["ranl_update"] == before["ranl_update"] + 1
+
+
+@pytest.mark.parametrize("n,d", [(32, 4096), (32, 8192)])
+def test_launch_config_spreads_the_main_shapes_over_the_card(n, d):
+    """The main path's shapes take the tile body (every row at once) with
+    at least 128 programs for the card's 132 SMs (256 as configured)."""
+    block_n, block_d, warps = K._launch_config(n, d)
+    assert block_n >= n and -(-d // block_d) >= 128
+    assert block_n * block_d <= K.TILE_ELEMS and 1 <= warps <= 4
+
+
+def test_launch_config_keeps_the_row_loop_at_large_d():
+    assert K._launch_config(32, 1 << 22) == (0, 1024, 4)
+    assert K._launch_config(33, 4096) == (0, 1024, 4)   # more rows than a tile
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 31, 32])
+@pytest.mark.parametrize("d", [1, 129, 4096, (1 << 16) + 37])
+def test_launch_config_tiles_cover_every_row(n, d):
+    block_n, block_d, warps = K._launch_config(n, d)
+    assert block_n >= n and block_n & (block_n - 1) == 0
+    assert block_d & (block_d - 1) == 0 and block_d >= 16
+    assert block_n * block_d <= K.TILE_ELEMS and 1 <= warps <= 4
 
 
 @pytest.mark.gpu
@@ -467,7 +494,15 @@ def test_tc_flash_attention_refuses_unaligned_views_on_card(cuda):
 @pytest.mark.parametrize("b,s,h,hd", WKV_CASES + [(4, 1024, 40, 64),
                                                   (4, 1, 40, 64),
                                                   (1, 37, 3, 64),
-                                                  (1, 50, 2, 128)], ids=str)
+                                                  (1, 50, 2, 128),
+                                                  (2, 300, 3, 64),
+                                                  (1, 300, 2, 16),
+                                                  (1, 300, 1, 128),
+                                                  (8, 40, 40, 64),
+                                                  (8, 1, 40, 64),
+                                                  (1, 1, 2, 16),
+                                                  (2, 1, 3, 32),
+                                                  (1, 1, 1, 128)], ids=str)
 def test_rwkv_wkv_kernel_matches_plain_on_card(cuda, b, s, h, hd, dtype):
     r, k, v, w, u, s0 = _t(*_wkv_inputs(b, s, h, hd), device=cuda)
     dt = getattr(torch, dtype)
@@ -478,6 +513,58 @@ def test_rwkv_wkv_kernel_matches_plain_on_card(cuda, b, s, h, hd, dtype):
     y_ref, sf_ref = ref.rwkv_wkv_ref(r, k, v, w, u, s0)
     torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(sf, sf_ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [300, 1])
+def test_rwkv_wkv_kernel_reads_a_strided_r_on_card(cuda, dtype, s):
+    """r as one half of a wider projection (strided heads), over many
+    chunks and in one decode step, against the plain version on a
+    contiguous copy."""
+    _, k, v, w, u, s0 = _t(*_wkv_inputs(2, s, 3, 64), device=cuda)
+    dt = getattr(torch, dtype)
+    wide = torch.randn(2, s, 3, 128, device=cuda).to(dt)
+    r = wide[..., 64:]
+    k, v, u = (t.to(dt) for t in (k, v, u))
+    y, sf = WKV.rwkv_wkv(r, k, v, w, u, s0)
+    y_ref, sf_ref = ref.rwkv_wkv_ref(r.contiguous(), k, v, w, u, s0)
+    torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(sf, sf_ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,hd", [(2, 3, 64), (4, 40, 64), (1, 2, 16),
+                                    (2, 3, 32), (1, 2, 128), (4, 40, 128)],
+                         ids=str)
+def test_rwkv_wkv_decode_steps_equal_one_run_on_card(cuda, dtype, b, h, hd):
+    """A prefill and then one-step calls from the state before give, bit
+    for bit, what one call over all the steps gives: the serve path's
+    decode computes what its prefill would have, on both tiles."""
+    r, k, v, w, u, s0 = _t(*_wkv_inputs(b, 40, h, hd), device=cuda)
+    dt = getattr(torch, dtype)
+    r, k, v, u = (t.to(dt) for t in (r, k, v, u))
+    y_all, s_all = WKV.rwkv_wkv(r, k, v, w, u, s0)
+    y, state = WKV.rwkv_wkv(r[:, :32], k[:, :32], v[:, :32], w[:, :32], u,
+                            s0)
+    ys = [y]
+    for t in range(32, 40):
+        y, state = WKV.rwkv_wkv(r[:, t:t + 1], k[:, t:t + 1], v[:, t:t + 1],
+                                w[:, t:t + 1], u, state)
+        ys.append(y)
+    assert torch.equal(torch.cat(ys, dim=1), y_all)
+    assert torch.equal(state, s_all)
+
+
+@pytest.mark.gpu
+def test_rwkv_wkv_kernel_refuses_unaligned_views_on_card(cuda):
+    r, k, v, w, u, s0 = _t(*_wkv_inputs(1, 16, 2, 64), device=cuda)
+    odd = torch.zeros(1 + 16 * 2 * 64, device=cuda)[1:].view(1, 16, 2, 64)
+    before = LAUNCHES["rwkv_wkv"]
+    with pytest.raises(ValueError, match="base address"):
+        WKV.rwkv_wkv(odd, k, v, w, u, s0)
+    assert LAUNCHES["rwkv_wkv"] == before
 
 
 @pytest.mark.gpu
@@ -495,6 +582,102 @@ def test_cuda_wrappers_check_inputs_on_card(cuda):
         WKV.rwkv_wkv(r, kk, vv, w.double(), u, s0)
     with pytest.raises(ValueError):
         WKV.rwkv_wkv(r, kk, vv, w, u, s0[:, :1])
+
+
+@functools.cache
+def _owned_cells(geo):
+    """Every (row, column) of one (b, h)'s state, in the order the blocks,
+    warps and lanes of ``geo`` hold them."""
+    return [cell for block in range(geo.blocks_per_head)
+            for warp in range(geo.warps) for lane in range(32)
+            for cell in geo.cells(block, warp, lane)]
+
+
+@pytest.mark.parametrize("t", [1, 37, 1024])
+@pytest.mark.parametrize("hd", WKV.HEAD_DIMS)
+def test_wkv_geometry_owns_each_state_entry_once(hd, t):
+    """For every B * H from 1 to 160 (the geometry depends on the product,
+    not on T): rows per lane × lanes = hd, every entry of every (b, h)'s
+    state, so each of its columns, is held by exactly one lane, and the
+    grid is B * H times the blocks of one (b, h)."""
+    for bh in range(1, 161):
+        geo = WKV.launch_geometry(1, bh, hd, num_sms=132)
+        assert geo.rows * geo.lanes == hd
+        assert geo.lanes * geo.col_blocks == 32
+        assert (geo.rows, geo.cols) in WKV.TILES and geo.cols <= geo.lanes
+        assert geo.warps in WKV.WARPS_PER_BLOCK
+        assert (geo.warps * geo.col_blocks * geo.cols * geo.blocks_per_head
+                == hd)
+        assert geo.blocks == bh * geo.blocks_per_head
+        cells = _owned_cells(geo)
+        assert len(cells) == hd * hd
+        assert set(cells) == {(i, j) for i in range(hd) for j in range(hd)}
+        assert WKV.launch_geometry(bh, 1, hd, num_sms=132) == geo
+
+
+@pytest.mark.parametrize("hd", WKV.HEAD_DIMS)
+def test_wkv_geometry_past_the_serve_shape(hd):
+    """More heads than rwkv6-3b's serve (B·H from 264: batch 7 and up)
+    still take a tile of ``TILES`` and own each state entry once."""
+    for bh in (264, 320, 1000):
+        geo = WKV.launch_geometry(bh, 1, hd, num_sms=132)
+        assert (geo.rows, geo.cols) in WKV.TILES
+        assert geo.blocks == bh * geo.blocks_per_head
+        cells = _owned_cells(geo)
+        assert len(cells) == hd * hd
+        assert set(cells) == {(i, j) for i in range(hd) for j in range(hd)}
+
+
+def test_wkv_geometry_at_the_serve_shape():
+    """rwkv6-3b (B·H = 160, hd 64) on 132 SMs: 8 × 2 state entries a lane,
+    at least 8 warps per SM, the busiest SM within 25 % of the average;
+    few heads take the smallest tile, for the most warps."""
+    geo = WKV.launch_geometry(4, 40, 64, num_sms=132)
+    assert (geo.rows, geo.cols, geo.lanes, geo.warps,
+            geo.blocks_per_head) == (8, 2, 8, 4, 2)
+    assert geo.blocks * geo.warps >= 8 * 132
+    assert -(-geo.blocks // 132) * geo.warps <= 1.25 * (
+        geo.blocks * geo.warps / 132)
+    assert WKV.launch_geometry(1, 1, 128, num_sms=132)[:2] == (4, 2)
+    with pytest.raises(ValueError, match="head dim"):
+        WKV.launch_geometry(1, 1, 96, num_sms=132)
+
+
+def _serve_views(B=2, S=5, H=3, hd=64, dtype=torch.bfloat16):
+    """r, k, v, w as the serve path makes them: reshapes of projection
+    outputs, and the decay in f32."""
+    x = torch.zeros(B, S, 48, dtype=dtype)
+    wr = torch.zeros(48, H * hd, dtype=dtype)
+    r, k, v = ((x @ wr).reshape(B, S, H, hd) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.zeros(B, S, H * hd))).reshape(B, S, H, hd)
+    return r, k, v, w
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", WKV.HEAD_DIMS)
+def test_wkv_copy_alignment_accepts_the_serve_path_views(hd, dtype):
+    dt = getattr(torch, dtype)
+    WKV.check_copy_alignment(*_serve_views(hd=hd, dtype=dt))
+    WKV.check_copy_alignment(*_serve_views(S=1, hd=hd, dtype=dt))  # decode
+    wide = torch.zeros(2, 5, 3, 2 * hd, dtype=dt)      # a fused projection
+    _, k, v, w = _serve_views(hd=hd, dtype=dt)
+    WKV.check_copy_alignment(wide[..., :hd], k, v, w)
+    WKV.check_copy_alignment(wide[..., hd:], k, v, w)
+
+
+def test_wkv_copy_alignment_refuses_odd_offsets_and_strides():
+    r, k, v, w = _serve_views(B=1, S=16, H=2)
+    flat = torch.zeros(1 + 16 * 2 * 64, dtype=torch.bfloat16)
+    odd_base = flat[1:].view(1, 16, 2, 64)              # 2-byte offset
+    with pytest.raises(ValueError, match="base address"):
+        WKV.check_copy_alignment(odd_base, k, v, w)
+    wide = torch.zeros(1, 16, 2, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="stride"):     # 136-byte heads
+        WKV.check_copy_alignment(r, wide, v, w)
+    gapped = torch.zeros(1, 16 * 2 * 64 + 64).as_strided(
+        (1, 16, 2, 64), (16 * 130, 130, 64, 1))           # 520-byte steps
+    with pytest.raises(ValueError, match="stride 130 in dim 1"):
+        WKV.check_copy_alignment(r, k, v, gapped)
 
 
 def test_build_names_each_library_by_its_source_and_needs_nvcc(monkeypatch):
