@@ -61,7 +61,27 @@ the card and times both, then drives the port's paths at full width:
 10. models_card_vs_host: both configs at full width cut to 2 layers,
    batch 1, 128 tokens, f32: logits on the card (kernels) against the
    CPU (plain twins), within 1e-3 (f32 sums in another order over
-   3000–9000-wide products and 128 recurrence steps).
+   3000–9000-wide products and 128 recurrence steps);
+11. batch_dense / batch_diag: ``engine="batch"`` over 8 seeds on the dense
+   and diag main paths (30 rounds): one seed-batched K1 or K2 launch a
+   round (30 in all), each row's integer traces equal to a scan run of
+   its seed on the card and its xs within ``BATCH_XS_RTOL`` x max |x|;
+   ms per round and per round and seed beside the single seed's and the
+   A or X read floor (2.56 / 0.64 ms at 3.35 TB/s);
+12. options: on the scan engine at the main paths' sizes, dense with
+   ``compression="int8"``, dense with ``quorum=0.75, max_delay=2`` on
+   ``pareto-stragglers``, diag with ``compression="topk:8"`` and the
+   ``"resource"`` controller on ``churn-stragglers``, diag with the
+   ``"staleness-bounded"`` controller on ``dropout``: finite, converging
+   (see ``phase_options``), and integer traces, comm_bytes and round_time
+   equal to a host run of the same problem and key; ms per round;
+13. lowrank_init: ``hessian_rank=4`` on a quadratic cut to N=32, d=512
+   (the rank-1 sweeps are a Python loop of (N−1)·rank·d column steps):
+   init seconds, card against host.
+
+K1 and K2 are also held against their plain versions at the batch
+engine's (8, 32, 8192) and (8, 32, 4096), a ragged (3, 7, 513) and B = 1,
+and their row's ``ms``/``bound_ms`` are those batched shapes'.
 
 Launch counts are set to 0 just before each main-path run and read just
 after.  A kernel's ``ms`` is its time on the card: a CUDA graph of
@@ -109,7 +129,14 @@ REPLACES = {"region_aggregate": "src/repro/kernels/region_aggregate.py:75",
             "rwkv_wkv": "src/repro/kernels/rwkv_wkv.py:57"}
 # main-path shapes (N, D) each kernel sees: dense rounds (K1), diag (K2)
 MAIN_SHAPE = {"region_aggregate": (32, 8192), "ranl_update": (32, 4096)}
+SEEDS = 8                       # the batch engine's seeds (batch_* phases)
+# the seed-batched shapes (B, N, D) of the batch engine's rounds
+BATCH_SHAPE = {name: (SEEDS,) + shape for name, shape in MAIN_SHAPE.items()}
 LARGE_SHAPE = (32, 1 << 22)
+# batch row b against a scan run of seed b on the card: xs within this
+# times max |x| (the B-column oracle product rounds apart from one column)
+BATCH_XS_RTOL = 1e-4
+LOWRANK = dict(num_workers=32, dim=512, rank=4)   # lowrank_init's cut
 CONSISTENT_LAYERS = 2           # depth of serve_consistent's tight check
 CONSISTENT_TOL = (2e-3, 3e-3)   # its prefill and decode bounds
 # serve_consistent at full depth: the kernels' gap to the full forward at
@@ -122,24 +149,26 @@ def log(msg):
     print(msg, flush=True)
 
 
-def kernel_bytes(name, n, d):
-    """HBM bytes of one call: G, M (1 byte), C read once, C′ written once,
-    plus ḡ written (K1) or x, h read and x′ written (K2)."""
+def kernel_bytes(name, n, d, b=1):
+    """HBM bytes of one call over b seeds: G, M (1 byte), C read once, C′
+    written once, plus ḡ written (K1) or x, h read and x′ written (K2)."""
     per_worker = 4 + 1 + 4 + 4
-    return (per_worker * n + (4 if name == "region_aggregate" else 12)) * d
+    return (per_worker * n + (4 if name == "region_aggregate" else 12)) * d * b
 
 
-def make_inputs(torch, n, d, mask_kind, gen):
+def make_inputs(torch, n, d, mask_kind, gen, b=None):
+    """Random G, M, C (n, d) and x, h (d,), or (b, n, d) and (b, d)."""
     dev = "cuda"
+    lead = () if b is None else (b,)
     if mask_kind == "random":
-        m = torch.rand(n, d, device=dev, generator=gen) < 0.5
+        m = torch.rand(*lead, n, d, device=dev, generator=gen) < 0.5
     else:
-        m = torch.full((n, d), mask_kind == "all_true", dtype=torch.bool,
-                       device=dev)
-    g = torch.randn(n, d, device=dev, generator=gen) * m
-    c = torch.randn(n, d, device=dev, generator=gen)
-    x = torch.randn(d, device=dev, generator=gen)
-    h = torch.rand(d, device=dev, generator=gen) + 0.05
+        m = torch.full(lead + (n, d), mask_kind == "all_true",
+                       dtype=torch.bool, device=dev)
+    g = torch.randn(*lead, n, d, device=dev, generator=gen) * m
+    c = torch.randn(*lead, n, d, device=dev, generator=gen)
+    x = torch.randn(*lead, d, device=dev, generator=gen)
+    h = torch.rand(*lead, d, device=dev, generator=gen) + 0.05
     return g, m, c, x, h
 
 
@@ -213,30 +242,35 @@ def phase_kernels(torch, report):
     for name in ("region_aggregate", "ranl_update"):
         kern, plain = calls(name)
         worst = 0.0
-        for n, d in ((32, (1 << 22) + 37), (7, 513), (1, 1),
-                     MAIN_SHAPE[name]):
+        for shape in ((32, (1 << 22) + 37), (7, 513), (1, 1),
+                      MAIN_SHAPE[name], BATCH_SHAPE[name], (3, 7, 513),
+                      (1,) + MAIN_SHAPE[name]):
+            *b, n, d = shape
             for mk in ("random", "all_false", "all_true"):
-                args = make_inputs(torch, n, d, mk, gen)
+                args = make_inputs(torch, n, d, mk, gen, *b)
                 out_k, out_p = kern(*args), plain(*args)
                 torch.cuda.synchronize()
                 if not torch.equal(out_k[1], out_p[1]):
-                    raise AssertionError(f"{name} {n}x{d} {mk}: C' differs")
+                    raise AssertionError(f"{name} {shape} {mk}: C' differs")
                 if not torch.allclose(out_k[0], out_p[0], rtol=1e-5,
                                       atol=1e-6):
-                    raise AssertionError(f"{name} {n}x{d} {mk}: first "
+                    raise AssertionError(f"{name} {shape} {mk}: first "
                                          f"output beyond rtol 1e-5")
                 err = (out_k[0] - out_p[0]).abs().max().item()
                 worst = max(worst, err)
         report[name] = {"max_abs_err": worst}
         log(f"{name}: matches its plain version (C' bit-equal, "
-            f"max |err| {worst:.3e})")
+            f"max |err| {worst:.3e}), seed-batched shapes included")
 
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
     for name in ("region_aggregate", "ranl_update"):
         kern, plain = calls(name)
-        for label, (n, d) in (("", MAIN_SHAPE[name]), ("_large", LARGE_SHAPE)):
-            nbytes = kernel_bytes(name, n, d)
-            sets = [make_inputs(torch, n, d, "random", gen)
+        for label, shape in (("_batch", BATCH_SHAPE[name]),
+                             ("_single", MAIN_SHAPE[name]),
+                             ("_large", LARGE_SHAPE)):
+            *b, n, d = shape
+            nbytes = kernel_bytes(name, n, d, *b)
+            sets = [make_inputs(torch, n, d, "random", gen, *b)
                     for _ in range(min(64, -(-2 * L2_BYTES // nbytes)))]
             row = {f"ms{label}": device_ms(torch, kern, sets),
                    f"plain_ms{label}": device_ms(torch, plain, sets),
@@ -244,15 +278,18 @@ def phase_kernels(torch, report):
                    f"plain_call_ms{label}": call_ms(torch, plain, sets[0],
                                                     flush),
                    f"bound_ms{label}": nbytes / HBM_BYTES_PER_S * 1e3,
-                   f"shape{label}": [n, d]}
+                   f"shape{label}": list(shape)}
             report[name].update(row)
-            log(f"{name} at {n}x{d}: on the card {row[f'ms{label}']:.5f} ms "
+            log(f"{name} at {shape}: on the card {row[f'ms{label}']:.5f} ms "
                 f"(plain {row[f'plain_ms{label}']:.5f} ms) over {len(sets)} "
                 f"input sets; one call {row[f'call_ms{label}']:.5f} ms "
                 f"(plain {row[f'plain_call_ms{label}']:.5f} ms); bound "
                 f"{row[f'bound_ms{label}']:.5f} ms = {nbytes} B at 3.35 TB/s")
             del sets
             torch.cuda.empty_cache()
+        # the row's contract numbers are the batch engine's shape
+        for key in ("ms", "plain_ms", "bound_ms", "shape"):
+            report[name][key] = report[name][f"{key}_batch"]
 
 
 def sync_time(torch, fn):
@@ -433,6 +470,263 @@ def phase_engines(torch, rt, report):
                          "card_vs_host_xs_max_abs": errs}
     log(f"engines: scan vs reference on the card, integer traces equal, "
         f"xs max |err| {scan_err:.3e}; card vs host xs max |err| {errs}")
+
+
+# --------------------------------------------------------------------------
+# the batch engine, the round options and the low-rank init
+# --------------------------------------------------------------------------
+
+def dense_problem(torch, rt, device="cuda"):
+    from repro_torch import prng
+    return rt.make_quadratic(prng.PRNGKey(0), num_workers=32, dim=8192,
+                             kappa=1e3, coupling=0.0, num_regions=64,
+                             device=device)
+
+
+def diag_problem(torch, rt, device="cuda"):
+    from repro_torch import prng
+    return rt.make_logistic(prng.PRNGKey(0), num_workers=32, per_worker=4096,
+                            dim=4096, device=device)
+
+
+def on_host(problem):
+    """The same problem with its tensors copied to the CPU."""
+    return dataclasses.replace(problem, **{
+        f.name: getattr(problem, f.name).cpu()
+        for f in dataclasses.fields(problem)
+        if hasattr(getattr(problem, f.name), "cpu")})
+
+
+INT_TRACES = ("coverage", "comm_floats", "max_stale", "round_time",
+              "comm_bytes")
+
+
+def same_traces(torch, a, b, label, seed=None):
+    """Integer traces (and the simulated clock and wire bytes) of ``a``
+    (row ``seed`` of a batched run, if given) equal ``b``'s."""
+    for f in INT_TRACES:
+        x = getattr(a, f) if seed is None else getattr(a, f)[seed]
+        if not torch.equal(x.cpu(), getattr(b, f).cpu()):
+            raise AssertionError(f"{label}: {f} differs")
+    tau = ((a.tau_star, a.tau_covered) if seed is None else
+           (int(a.tau_star[seed]), int(a.tau_covered[seed])))
+    if tau != (b.tau_star, b.tau_covered):
+        raise AssertionError(f"{label}: tau {tau} vs "
+                             f"{(b.tau_star, b.tau_covered)}")
+
+
+def phase_batch(torch, rt, report, launches, kind):
+    """engine="batch" over SEEDS keys at the main path's full size: one
+    seed-batched K1 (dense) or K2 (diag) launch a round, held against
+    SEEDS separate scan runs on the card."""
+    from repro_torch import prng
+    T = 30
+    name = "region_aggregate" if kind == "dense" else "ranl_update"
+    problem = (dense_problem if kind == "dense" else diag_problem)(torch, rt)
+    data = problem.A if kind == "dense" else problem.X
+    keys = prng.split(prng.PRNGKey(1), SEEDS)
+    opts = dict(num_rounds=T, num_regions=64, curvature=kind,
+                policy=rt.PolicyConfig(keep_prob=0.5, tau_star=1))
+    init_s = init_seconds(torch, lambda: rt.run(
+        problem, keys, engine="batch", **{**opts, "num_rounds": 0}))
+    res, total_s, counts = main_path_run(torch, rt, problem, keys, launches,
+                                         engine="batch", **opts)
+    check_finite(torch, res)
+    if counts != {**ZERO, name: T}:
+        raise AssertionError(f"batch {kind} launches {counts}")
+    if tuple(res.xs.shape) != (SEEDS, T + 2, problem.dim):
+        raise AssertionError(f"batch {kind}: xs shape {tuple(res.xs.shape)}")
+    if kind == "dense":
+        if not bool((res.dist_sq[:, -1] <= 1e-6 * res.dist_sq[:, 0]).all()):
+            raise AssertionError("batch dense: dist_sq did not fall by 1e-6")
+    elif not bool((res.losses[:, -1] < res.losses[:, 0]).all()):
+        raise AssertionError("batch diag: loss did not fall below x0's")
+    worst = 0.0
+    for b in range(SEEDS):
+        one = rt.run(problem, keys[b], **opts)
+        same_traces(torch, res, one, f"batch {kind} seed {b} vs scan", b)
+        scale = one.xs.abs().max().item()
+        err = (res.xs[b] - one.xs).abs().max().item()
+        if not err <= BATCH_XS_RTOL * scale:
+            raise AssertionError(f"batch {kind} seed {b} vs scan: xs max "
+                                 f"|err| {err} > {BATCH_XS_RTOL} x {scale}")
+        worst = max(worst, err / scale)
+    round_ms = (total_s - init_s) / T * 1e3
+    floor_ms = data.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    solve = solve_ms(torch, problem) if kind == "dense" else {}
+    report[f"batch_{kind}"] = {
+        "seeds": SEEDS, "init_s": init_s, "total_s": total_s,
+        "round_ms": round_ms, "round_ms_per_seed": round_ms / SEEDS,
+        "single_seed_round_ms": report.get(kind, {}).get("round_ms"),
+        "read_floor_ms": floor_ms, "launches": counts,
+        "xs_vs_scan_max_rel": worst, **solve}
+    if solve:
+        log(f"batch_dense: one round's Cholesky step alone: "
+            f"{solve['solve_ms_batch']:.3f} ms for {SEEDS} seeds at once, "
+            f"{solve['solve_ms_single']:.3f} ms for one (torch."
+            f"cholesky_solve: {solve['solve_ms_cholesky_solve_batch']:.3f} "
+            f"and {solve['solve_ms_cholesky_solve_single']:.3f} ms)")
+    log(f"batch_{kind}: {SEEDS} seeds, init {init_s:.2f} s, {round_ms:.3f} "
+        f"ms/round = {round_ms / SEEDS:.3f} ms per round and seed (one seed: "
+        f"{report.get(kind, {}).get('round_ms')} ms/round); "
+        f"{'A' if kind == 'dense' else 'X'} read floor {floor_ms:.3f} ms a "
+        f"round at 3.35 TB/s; launches {counts}; each row equals its scan "
+        f"run (integer traces), xs max |err| {worst:.3e} x max |x|")
+    del problem, res
+    torch.cuda.empty_cache()
+
+
+def solve_ms(torch, problem):
+    """CUDA-event times of one round's dense step against the factor of
+    the mean Hessian, median of 5: the port's ``cho_solve`` (two
+    triangular solves) for SEEDS seeds at once (SEEDS factors, as the
+    batch engine holds) and for one, and ``torch.cholesky_solve`` of the
+    same, which computes the same two solves."""
+    from repro_torch.core.hessian import cho_factor, cho_solve
+    L = cho_factor(problem.mean_hessian())
+    LB = L.expand(SEEDS, -1, -1).contiguous()
+    g = torch.randn(SEEDS, problem.dim, device="cuda")
+    out = {}
+    for label, fn in (
+            ("batch", lambda: cho_solve(LB, g)),
+            ("single", lambda: cho_solve(L, g[0])),
+            ("cholesky_solve_batch",
+             lambda: torch.cholesky_solve(g[..., None], LB)),
+            ("cholesky_solve_single",
+             lambda: torch.cholesky_solve(g[0, :, None], L))):
+        fn()
+        out[f"solve_ms_{label}"] = statistics.median(
+            event_ms(torch, fn) for _ in range(5))
+    del L, LB
+    torch.cuda.empty_cache()
+    return out
+
+
+def option_runs():
+    """(label, problem kind, options, controller, scenario, converges) of
+    the options phase: compression, quorum and the closed-loop
+    controllers on the scan engine at the main paths' sizes.  The top-k
+    diag run does not converge, in the reference as in the port: each
+    worker sends 8 of 64 regions, error feedback releases the rest
+    rounds later, and the unit diagonal Newton step overshoots on that
+    delayed mass (the loss climbs from 0.591 at x¹ to about 0.79 at x^T;
+    ROADMAP Queue 3).  It is held to finite values and to the host run."""
+    return (
+        ("dense_int8", "dense", dict(compression="int8"), None, None, True),
+        ("dense_quorum", "dense", dict(quorum=0.75, max_delay=2), None,
+         "pareto-stragglers", True),
+        ("diag_topk_resource", "diag", dict(compression="topk:8"),
+         "resource", "churn-stragglers", False),
+        ("diag_staleness_bounded", "diag", dict(), "staleness-bounded",
+         "dropout", True))
+
+
+def phase_options(torch, rt, report, launches):
+    """Each option run on the card, then the same problem, key and options
+    on the host: integer traces, comm_bytes and round_time equal.  The
+    scenario's cost model is drawn on the host (pareto rates included) and
+    moved, so card and host price the same cluster; quorum deadlines are
+    differences of those rates' f32 quotients, equal on both, so no
+    tolerance is needed.  A converging dense run's dist_sq falls from x¹
+    to x^T; a converging diag run's loss falls below x⁰'s (its first
+    diagonal Newton step lands next to x*, and the pruned rounds settle a
+    little above it: ROADMAP Queue 3).  ``option_runs`` says which run
+    does not converge, and why."""
+    from repro_torch import prng
+    from repro_torch.hetero.scenarios import make_scenario
+    T = 30
+    out = {}
+    for kind in ("dense", "diag"):
+        problem = (dense_problem if kind == "dense" else diag_problem)(
+            torch, rt)
+        host, N = on_host(problem), problem.num_workers
+        for label, pk, kw, ctrl, scen, converges in option_runs():
+            if pk != kind:
+                continue
+            opts = dict(num_rounds=T, num_regions=64, curvature=kind,
+                        controller=ctrl, **kw)
+            card_cost = host_cost = None
+            if scen is not None:
+                card_cost = make_scenario(scen, prng.PRNGKey(7), N,
+                                          device="cuda").cost
+                host_cost = make_scenario(scen, prng.PRNGKey(7), N,
+                                          device="cpu").cost
+            init_s = init_seconds(torch, lambda: rt.run(
+                problem, prng.PRNGKey(1), cost=card_cost,
+                **{**opts, "num_rounds": 0}))
+            res, total_s, counts = main_path_run(
+                torch, rt, problem, prng.PRNGKey(1), launches,
+                cost=card_cost, **opts)
+            check_finite(torch, res)
+            if converges and kind == "dense" and not float(
+                    res.dist_sq[-1]) < float(res.dist_sq[1]):
+                raise AssertionError(f"{label}: dist_sq did not fall from "
+                                     f"x1 to x_T")
+            if converges and kind == "diag" and not float(
+                    res.losses[-1]) < float(res.losses[0]):
+                raise AssertionError(f"{label}: loss did not fall below "
+                                     f"x0's")
+            t0 = time.time()
+            ref = rt.run(host, prng.PRNGKey(1), device="cpu", cost=host_cost,
+                         **opts)
+            host_s = time.time() - t0
+            same_traces(torch, res, ref, f"{label} card vs host")
+            round_ms = (total_s - init_s) / T * 1e3
+            out[label] = {"init_s": init_s, "round_ms": round_ms,
+                          "held_to_converge": converges,
+                          "launches": counts, "host_run_s": host_s,
+                          "dist_sq_1": float(res.dist_sq[1]),
+                          "dist_sq_T": float(res.dist_sq[-1]),
+                          "loss_0": float(res.losses[0]),
+                          "loss_T": float(res.losses[-1]),
+                          "tau_star": res.tau_star,
+                          "comm_bytes_total": float(res.comm_bytes.sum()),
+                          "round_time_total": float(res.round_time.sum())}
+            log(f"options {label}: {round_ms:.3f} ms/round (init "
+                f"{init_s:.2f} s); dist_sq {out[label]['dist_sq_1']:.4e} "
+                f"(x1) -> {out[label]['dist_sq_T']:.4e}, loss "
+                f"{out[label]['loss_0']:.5f} -> {out[label]['loss_T']:.5f}; "
+                f"integer traces, comm_bytes and round_time equal the host "
+                f"run's ({host_s:.1f} s); launches {counts}")
+        del problem, host
+        torch.cuda.empty_cache()
+    report["options"] = out
+
+
+def phase_lowrank(torch, rt, report):
+    """hessian_rank on the scan engine at a cut size (LOWRANK): the
+    column sweep of each rank-1 update is a Python loop, (N−1)·rank
+    sweeps of d columns.  Card against host: integer traces equal, xs
+    within 1e-4 x max |x| (two eigh and Cholesky implementations)."""
+    from repro_torch import prng
+    n, d, r = LOWRANK["num_workers"], LOWRANK["dim"], LOWRANK["rank"]
+    problem = rt.make_quadratic(prng.PRNGKey(5), num_workers=n, dim=d,
+                                kappa=100.0, coupling=0.0, num_regions=16,
+                                grad_noise=0.1, device="cuda")
+    opts = dict(num_regions=16, hessian_rank=r)
+    init_s = sync_time(torch, lambda: rt.run(
+        problem, prng.PRNGKey(6), num_rounds=0, **opts))[1]
+    card = rt.run(problem, prng.PRNGKey(6), num_rounds=10, **opts)
+    check_finite(torch, card)
+    t0 = time.time()
+    host = rt.run(on_host(problem), prng.PRNGKey(6), device="cpu",
+                  num_rounds=10, **opts)
+    host_s = time.time() - t0
+    same_traces(torch, card, host, "lowrank_init card vs host")
+    scale = host.xs.abs().max().item()
+    err = (card.xs.cpu() - host.xs).abs().max().item()
+    if not err <= 1e-4 * scale:
+        raise AssertionError(f"lowrank_init card vs host: xs max |err| "
+                             f"{err} > 1e-4 x {scale}")
+    steps = (n - 1) * r * d
+    report["lowrank_init"] = {"num_workers": n, "dim": d, "rank": r,
+                              "column_steps": steps, "init_s": init_s,
+                              "host_run_s": host_s,
+                              "xs_vs_host_max_rel": err / scale}
+    log(f"lowrank_init: N={n} d={d} rank {r}: init {init_s:.2f} s on the "
+        f"card ({steps} column steps, {init_s / steps * 1e6:.1f} us each); "
+        f"host run {host_s:.2f} s; card vs host xs max |err| "
+        f"{err / scale:.3e} x max |x|")
 
 
 def sass_counts(build):
@@ -1001,9 +1295,27 @@ def phase_card_vs_host(torch, report):
         torch.cuda.empty_cache()
 
 
+def launches_by_path(report):
+    """{path: its run's launch counts} for every counted main-path run the
+    report holds (options runs as ``options.<label>``)."""
+    paths = {}
+    for phase, row in report.items():
+        if not isinstance(row, dict):
+            continue
+        if isinstance(row.get("launches"), dict):
+            paths[phase] = row["launches"]
+        for label, sub in row.items():
+            if isinstance(sub, dict) and isinstance(sub.get("launches"),
+                                                    dict):
+                paths[f"{phase}.{label}"] = sub["launches"]
+    return paths
+
+
 def kernels_line(report, launches):
     """One row per kernel: the contract's keys first, then the extra
-    measurements each row carries (shapes, one-call times, decode)."""
+    measurements each row carries (shapes, one-call times, decode, the
+    launches of each main-path run)."""
+    paths = launches_by_path(report)
     rows = []
     for name in KERNELS:
         r = dict(report[name])
@@ -1012,7 +1324,9 @@ def kernels_line(report, launches):
                "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
                "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
                "bound_by": r.pop("bound_by", "bytes"),
-               "library_ms": r.pop("library_ms", None)}
+               "library_ms": r.pop("library_ms", None),
+               "launches_by_path": {p: c[name] for p, c in paths.items()
+                                    if c.get(name)}}
         row.update(r)
         rows.append(row)
     return json.dumps({"kernels": rows})
@@ -1064,6 +1378,12 @@ def main(argv=None) -> int:
             ("dense", lambda: phase_dense(torch, rt, report, launches)),
             ("diag", lambda: phase_diag(torch, rt, report, launches)),
             ("engines", lambda: phase_engines(torch, rt, report)),
+            ("batch_dense", lambda: phase_batch(torch, rt, report, launches,
+                                                "dense")),
+            ("batch_diag", lambda: phase_batch(torch, rt, report, launches,
+                                               "diag")),
+            ("options", lambda: phase_options(torch, rt, report, launches)),
+            ("lowrank_init", lambda: phase_lowrank(torch, rt, report)),
             ("serve_rwkv", lambda: phase_serve(
                 torch, report, launches, "rwkv6-3b",
                 {"rwkv_wkv": 32 * (1 + 31)})),

@@ -2,9 +2,12 @@
 """Time one of the port's kernels on one card in several checkouts, in
 turns.
 
-    python3 kernel_ab.py --kernel NAME TREE [TREE ...]
+    python3 kernel_ab.py --kernel NAME [--seeds B] TREE [TREE ...]
 
 NAME is one of flash_attention, rwkv_wkv, region_aggregate, ranl_update.
+``--seeds B`` times the aggregation kernels in their seed-batched form,
+(B, N, D) at each shape, as the batch engine launches them (a tree whose
+kernel has no seed axis fails its check).
 Each TREE is a directory that holds a checkout of this repository, e.g.
 the parent commit unpacked with ``git archive`` into a git-ignored
 directory.  The trees run first to last and then last to first, each run
@@ -99,28 +102,30 @@ def time_wkv(C, torch, tree, gen):
         torch.cuda.empty_cache()
 
 
-def time_aggregate(C, torch, tree, gen, name):
+def time_aggregate(C, torch, tree, gen, name, seeds=None):
     kern, plain = C.calls(name)
     flush = torch.empty(2 * C.L2_BYTES, dtype=torch.uint8, device="cuda")
+    lead = () if seeds is None else (seeds,)
     for i, (n, d) in enumerate(SHAPES[name]):
-        nb = C.kernel_bytes(name, n, d)
-        sets = [C.make_inputs(torch, n, d, "random", gen)
+        nb = C.kernel_bytes(name, n, d, *lead)
+        sets = [C.make_inputs(torch, n, d, "random", gen, *lead)
                 for _ in range(min(64, -(-2 * C.L2_BYTES // nb)))]
         if i == 0:
             got, want = kern(*sets[0]), plain(*sets[0])
             if not (torch.equal(got[1], want[1]) and torch.allclose(
                     got[0], want[0], rtol=1e-5, atol=1e-6)):
                 raise AssertionError(f"{tree}: {name} differs from its "
-                                     f"plain version at {(n, d)}")
+                                     f"plain version at {lead + (n, d)}")
         ms = C.device_ms(torch, kern, sets)
         one = C.call_ms(torch, kern, sets[0], flush)
-        print(f"{tree} {(n, d)}: {ms:.5f} ms, one call {one:.5f} ms (bound "
-              f"{nb / C.HBM_BYTES_PER_S * 1e3:.5f} ms by bytes)", flush=True)
+        print(f"{tree} {lead + (n, d)}: {ms:.5f} ms, one call {one:.5f} ms "
+              f"(bound {nb / C.HBM_BYTES_PER_S * 1e3:.5f} ms by bytes)",
+              flush=True)
         del sets
         torch.cuda.empty_cache()
 
 
-def run_one(kernel: str, tree: str):
+def run_one(kernel: str, tree: str, seeds=None):
     """Build, check and time the kernel of one tree (in this process)."""
     import chip_smoke as C            # timing helpers of this checkout
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
@@ -133,14 +138,20 @@ def run_one(kernel: str, tree: str):
     elif kernel == "rwkv_wkv":
         time_wkv(C, torch, tree, gen)
     else:
-        time_aggregate(C, torch, tree, gen, kernel)
+        time_aggregate(C, torch, tree, gen, kernel, seeds)
 
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", required=True, choices=sorted(SHAPES))
+    ap.add_argument("--seeds", type=int, default=None,
+                    help="time region_aggregate/ranl_update over this many "
+                         "seeds in one launch")
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args(argv)
+    if args.seeds is not None and args.kernel not in ("region_aggregate",
+                                                      "ranl_update"):
+        ap.error("--seeds applies to region_aggregate and ranl_update")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -150,8 +161,11 @@ def main(argv) -> int:
     for tree in args.trees + args.trees[::-1]:
         try:
             r = subprocess.run([sys.executable, __file__, "--one",
-                                args.kernel, tree], capture_output=True,
-                               text=True, timeout=RUN_TIMEOUT_S)
+                                args.kernel, tree]
+                               + ([] if args.seeds is None
+                                  else [str(args.seeds)]),
+                               capture_output=True, text=True,
+                               timeout=RUN_TIMEOUT_S)
         except subprocess.TimeoutExpired:
             print(f"{tree}: ran past {RUN_TIMEOUT_S} s", flush=True)
             failed += 1
@@ -167,6 +181,7 @@ def main(argv) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--one"]:
         sys.path.insert(0, HERE)
-        run_one(sys.argv[2], sys.argv[3])
+        run_one(sys.argv[2], sys.argv[3],
+                int(sys.argv[4]) if len(sys.argv) > 4 else None)
     else:
         sys.exit(main(sys.argv[1:]))

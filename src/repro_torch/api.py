@@ -19,7 +19,8 @@ from __future__ import annotations
 
 from . import prng
 from .core.options import RanlOptions
-from .core.ranl import RanlResult, _run_reference, _run_scan  # noqa: F401
+from .core.ranl import RanlResult, _run_batch, _run_reference, \
+    _run_scan  # noqa: F401
 from .device import resolve_device
 
 ENGINES = ("scan", "batch", "sharded", "sharded2d", "reference")
@@ -27,13 +28,8 @@ _MESH_REQUIRED = ("sharded", "sharded2d")
 
 # what is not ported yet -> the ROADMAP (Queue 1) item that ports it
 _NOT_YET = {
-    "batch": "item 8 (batch engine)",
     "sharded": "item 12 (1-D sharded engine)",
     "sharded2d": "item 13 (2-D engine)",
-    "compression": "item 9 (compression)",
-    "hessian_rank": "item 9 (low-rank [H]_mu init)",
-    "quorum": "item 10 (quorum rounds)",
-    "controller": "item 10 (closed-loop controllers)",
     "hierarchy": "item 11 (hierarchy)",
     "overlap": "item 12 (overlapped sharded rounds)",
     "journal": "item 15 (observability)",
@@ -47,7 +43,12 @@ def _not_yet(what: str, detail: str = ""):
 
 
 def _resolve(engine, options, mesh, controller, overrides):
-    """Shared validation -> (options, controller)."""
+    """Shared validation -> (options, controller).  As the reference's: a
+    controller spec string goes through ``make_controller``, and a
+    ``QuorumController`` is unwrapped — its knobs move onto the options
+    (setting quorum in both places is an error) and its inner controller
+    drives the masks."""
+    from .hetero.controller import QuorumController, make_controller
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r} "
                          f"(expected one of {ENGINES})")
@@ -61,11 +62,9 @@ def _resolve(engine, options, mesh, controller, overrides):
     if mesh is not None:
         raise ValueError(f"engine {engine!r} takes no mesh — the "
                          f"sharded engines are {_MESH_REQUIRED}")
-    for name in ("overlap", "compression", "hessian_rank", "hierarchy"):
+    for name in ("overlap", "hierarchy"):
         if getattr(opts, name) not in (None, False):
             raise _not_yet(name, f"={getattr(opts, name)!r}")
-    if opts.quorum is not None:
-        raise _not_yet("quorum", f"={opts.quorum!r}")
     if engine == "reference":
         if opts.curvature != "dense":
             raise ValueError("the reference engine is the dense-eigh "
@@ -75,8 +74,22 @@ def _resolve(engine, options, mesh, controller, overrides):
             raise ValueError("the reference engine is the dense-eigh "
                              "oracle — projection='ns' has no host-loop "
                              "form")
+        if opts.hessian_rank is not None:
+            raise ValueError("the reference engine is the dense-eigh "
+                             "oracle — hessian_rank has no host-loop "
+                             "form (use engine='scan')")
     if isinstance(controller, str):
-        raise _not_yet("controller", f" spec {controller!r}")
+        controller = make_controller(controller)
+    if isinstance(controller, QuorumController):
+        if opts.quorum is not None:
+            raise ValueError(
+                "quorum is configured twice: on the QuorumController AND "
+                "on RanlOptions — set it in exactly one place")
+        opts = opts.merged(quorum=controller.quorum,
+                           quorum_tau=controller.quorum_tau,
+                           gamma=controller.gamma,
+                           max_delay=controller.max_delay)
+        controller = controller.inner
     return opts, controller
 
 
@@ -96,8 +109,10 @@ def run(problem, key, *, engine: str = "scan",
         **overrides) -> RanlResult:
     """Run Algorithm 1 on ``problem`` with the chosen engine.
 
-    ``key``: a ``repro_torch.prng`` key (uint32 (2,)).  ``controller``: a
-    controller object or ``None`` (the options' policy); ``cost``: a
+    ``key``: a ``repro_torch.prng`` key (uint32 (2,)), or (B, 2) stacked
+    keys for ``engine="batch"``, whose result carries a leading seed
+    axis.  ``controller``: a controller object, a ``make_controller``
+    spec string or ``None`` (the options' policy); ``cost``: a
     ``CostModel`` on the problem's device or ``None`` (uniform).
     ``**overrides`` are ``RanlOptions`` fields merged into ``options``.
     """
@@ -107,6 +122,12 @@ def run(problem, key, *, engine: str = "scan",
         raise _not_yet("journal", "=")
     _check_device(problem, device)
     key = prng.as_key(key)
+    if engine == "batch":
+        if key.ndim != 2 or key.shape[0] < 1:
+            raise ValueError(f"engine 'batch' takes stacked keys of shape "
+                             f"(B, 2), got {key.shape}")
+        return _run_batch(problem, key, opts, controller=controller,
+                          cost=cost)
     if key.shape != (2,):
         raise ValueError(f"run takes one key of shape (2,), got "
                          f"{key.shape}")

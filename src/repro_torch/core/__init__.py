@@ -1,7 +1,23 @@
 """Paper core: RANL (Algorithm 1) and its substrate, in PyTorch."""
 
-from .aggregation import server_aggregate  # noqa: F401
-from .compression import CompressionSpec, parse_compression, uplink_bytes  # noqa: F401
+from .aggregation import late_fold_updates, quorum_aggregate, server_aggregate  # noqa: F401
+from .baselines import (  # noqa: F401
+    rounds_to_tol,
+    run_gd,
+    run_newton_exact,
+    run_newton_zero,
+    run_sgd,
+)
+from .compression import (  # noqa: F401
+    CompressionSpec,
+    chol_rank1_update,
+    compress_rows,
+    compressed_quorum_aggregate,
+    compressed_server_aggregate,
+    lowrank_hmu_factor,
+    parse_compression,
+    uplink_bytes,
+)
 from .convex import Logistic, Quadratic, make_logistic, make_quadratic  # noqa: F401
 from .hessian import (  # noqa: F401
     hutchinson_diag,
@@ -9,6 +25,7 @@ from .hessian import (  # noqa: F401
     project_psd,
     project_psd_ns,
     solve_projected,
+    sym_eigh,
 )
 from .masks import (  # noqa: F401
     PolicyConfig,

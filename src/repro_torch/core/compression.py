@@ -1,19 +1,39 @@
-"""Uplink compression: the option parser and the wire-byte model.
+"""Compressed uplink communication and the low-rank [H]_μ init.
 
-This slice carries the uncompressed path only.  ``parse_compression``
-validates ``RanlOptions.compression`` at construction time (same grammar
-and errors as the reference), and ``uplink_bytes`` meters the
-uncompressed wire.  The lossy compressors, their error-feedback residual
-and the compressed aggregations arrive with ROADMAP Queue 1 item 9.
+* ``CompressionSpec`` / ``parse_compression``: ``"int8"`` (per-row absmax
+  over 127 levels), ``"bf16"`` (a bfloat16 round trip) and ``"topk:k"``
+  (keep the k highest-energy regions of each row);
+* every compressor runs under ERROR FEEDBACK: a worker sends
+  ``C(y + e)`` and keeps ``e' = (y + e) − C(y + e)``, which the round
+  loop carries;
+* ``compress_rows`` / ``compressed_server_aggregate`` /
+  ``compressed_quorum_aggregate`` compress each worker's uplink row, the
+  single-reduction contribution ``where(covered, G_i/denom, C_i/N)``; the
+  gradient memory C stays exact (it is server state, not wire traffic);
+* ``uplink_bytes``: the metered bytes on the wire (4 a coordinate
+  uncompressed, 1 plus a 4-byte scale for int8, 2 for bf16, for top-k
+  the k largest trained regions plus 4 bytes of metadata each);
+* ``chol_rank1_update`` / ``lowrank_hmu_factor``: instead of N dense
+  worker Hessians, worker 0's projected Hessian plus the top-``rank``
+  eigenpairs of every other worker's, folded by Cholesky rank-1 updates.
+
+The reference's rules, values and draws.  Top-k breaks ties in energy by
+the lower region index, as ``jax.lax.top_k`` does, through a stable sort,
+so the card and the host select the same regions.  Every function
+broadcasts over a leading seed axis.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
 
+from .aggregation import _shift_in, late_fold_updates
+
 _KINDS = ("int8", "bf16", "topk")
+_EPS = 1e-30
 
 
 @dataclass(frozen=True)
@@ -50,12 +70,142 @@ def parse_compression(value) -> CompressionSpec | None:
                      f"'bf16' or 'topk:k'")
 
 
+def _topk_region_mask(y_sq, region_ids, num_regions: int, k: int):
+    """(..., d) bool keep-mask of the ``k`` regions of highest energy
+    (per-region sums of ``y_sq``); ties go to the lower region index."""
+    Q = int(num_regions)
+    kk = min(int(k), Q)
+    onehot = (region_ids[None, :] == torch.arange(
+        Q, device=y_sq.device)[:, None]).to(y_sq.dtype)       # (Q, d)
+    scores = y_sq @ onehot.T                                   # (..., Q)
+    idx = torch.sort(-scores, dim=-1, stable=True).indices[..., :kk]
+    keep_q = torch.zeros(scores.shape, dtype=torch.bool,
+                         device=y_sq.device).scatter_(-1, idx, True)
+    return keep_q.index_select(-1, region_ids)
+
+
+def compress_rows(comp: CompressionSpec | None, Y, region_ids,
+                  num_regions: int):
+    """What the server decodes from each worker's row of ``Y`` (..., N, d);
+    the caller's error-feedback residual is ``Y − compress_rows(...)``."""
+    if comp is None:
+        return Y
+    if comp.kind == "int8":
+        scale = Y.abs().amax(dim=-1, keepdim=True)
+        step = torch.clamp_min(scale, _EPS) / 127.0
+        q = torch.clamp(torch.round(Y / step), -127, 127)
+        return q * step
+    if comp.kind == "bf16":
+        return Y.to(torch.bfloat16).to(Y.dtype)
+    keep = _topk_region_mask(Y * Y, region_ids, num_regions, comp.k)
+    return torch.where(keep, Y, torch.zeros_like(Y))
+
+
 def uplink_bytes(comp: CompressionSpec | None, M: torch.Tensor,
                  sizes_q: torch.Tensor) -> torch.Tensor:
-    """(N,) f32 modeled uplink bytes per worker for one round's (N, Q)
-    mask: 4 bytes per trained coordinate uncompressed."""
-    if comp is not None:
-        raise NotImplementedError(
-            "compressed uplinks arrive with ROADMAP Queue 1 item 9")
-    kept = M.to(torch.float32) * sizes_q[None, :].to(torch.float32)
-    return 4.0 * kept.sum(dim=1)
+    """(..., N) f32 modeled uplink bytes per worker for one round's
+    (..., N, Q) mask; workers that train nothing send nothing."""
+    kept = M.to(torch.float32) * sizes_q.to(torch.float32)
+    work = kept.sum(dim=-1)
+    if comp is None:
+        return 4.0 * work
+    zero = torch.zeros_like(work)
+    if comp.kind == "int8":
+        return torch.where(work > 0, work + 4.0, zero)
+    if comp.kind == "bf16":
+        return 2.0 * work
+    kk = min(int(comp.k), int(sizes_q.shape[0]))
+    top = torch.sort(kept, dim=-1).values[..., -kk:].sum(dim=-1)
+    return torch.where(work > 0, 4.0 * top + 4.0 * kk, zero)
+
+
+def _contributions(fresh, C, covered, denom):
+    """Each worker's uplink row in single-reduction form:
+    ``where(covered, fresh/denom, C/N)``."""
+    return torch.where(covered[..., None, :], fresh / denom[..., None, :],
+                       C / C.shape[-2])
+
+
+def compressed_server_aggregate(G, Mx, C, err, comp: CompressionSpec, *,
+                                region_ids, num_regions: int):
+    """``server_aggregate`` with each worker's uplink compressed under
+    error feedback.  Returns (global_grad, new_memory, new_err)."""
+    m = Mx.to(G.dtype)
+    count = m.sum(dim=-2)
+    y = _contributions(G * m, C, count > 0,
+                       torch.clamp_min(count, 1.0)) + err
+    sent = compress_rows(comp, y, region_ids, num_regions)
+    return sent.sum(dim=-2), torch.where(Mx, G, C), y - sent
+
+
+def compressed_quorum_aggregate(G, Mx, C, err, on_time, delays, late_buf,
+                                comp: CompressionSpec, *, region_ids,
+                                num_regions: int, gamma: float,
+                                max_delay: int):
+    """``quorum_aggregate`` with the on-time uplinks compressed under error
+    feedback; late arrivals fold uncompressed (they are already damped).
+    Returns (global_grad, new_memory, new_err, new_late_buf)."""
+    m = Mx.to(G.dtype)
+    on = on_time.to(G.dtype)[..., None]
+    count_full = m.sum(dim=-2)
+    count_on = (m * on).sum(dim=-2)
+    y = _contributions(G * m * on, C, count_on > 0,
+                       torch.clamp_min(count_full, 1.0)) + err
+    sent = compress_rows(comp, y, region_ids, num_regions)
+    g = sent.sum(dim=-2) + late_buf[..., 0, :]
+    adds = late_fold_updates(G, Mx, count_full, delays, gamma=gamma,
+                             max_delay=max_delay)
+    dropped = delays > int(max_delay)
+    new_memory = torch.where(Mx & ~dropped[..., None], G, C)
+    return g, new_memory, y - sent, _shift_in(late_buf, adds)
+
+
+# --------------------------------------------------------------------------
+# low-rank running update to [H]_μ (init-phase Hessian compression)
+# --------------------------------------------------------------------------
+
+def chol_rank1_update(L, u, alpha):
+    """Lower Cholesky factor of ``L Lᵀ + alpha u uᵀ`` (alpha clamped at 0),
+    O(d²): the rotation sweep over columns, one column a step.
+
+    The reference runs the sweep as one compiled ``lax.scan``; here it is
+    a Python loop of a few small operations a column, which is what makes
+    the low-rank init slow on the card at large d (ROADMAP)."""
+    L = L.clone()
+    n = L.shape[0]
+    w = torch.sqrt(torch.clamp_min(torch.as_tensor(
+        alpha, dtype=L.dtype, device=L.device), 0.0)) * u
+    for k in range(n):
+        lkk, wk = L[k, k], w[k]
+        r = torch.sqrt(lkk * lkk + wk * wk)
+        c = r / lkk
+        s = wk / lkk
+        col = (L[k + 1:, k] + s * w[k + 1:]) / c
+        w[k + 1:] = c * w[k + 1:] - s * col
+        L[k + 1:, k] = col
+        L[k, k] = r
+    return L
+
+
+def lowrank_hmu_factor(problem, x0, hkeys, mu: float, *, rank: int):
+    """The low-rank running [H]_μ build: a lower Cholesky factor of
+
+        S/N,  S = [H_0]_μ + Σ_{i≥1} (μI + top_r(clamp(H_i − μI, 0)))
+
+    with each worker's top-``rank`` eigenpairs folded into chol(S) by
+    ``chol_rank1_update``.  Every summand dominates μI, so S/N ⪰ μI
+    without a final projection; at ``rank = d`` with every H_i ⪰ μI it
+    is chol(mean_i H_i)."""
+    from .hessian import project_psd, sym_eigh
+    N, d = problem.num_workers, problem.dim
+    r = min(int(rank), d)
+    eye = torch.eye(d, dtype=torch.float32, device=problem.device)
+    S0 = project_psd(problem.worker_hessian(0, x0, hkeys[0]), mu) \
+        + (N - 1) * mu * eye
+    L = torch.linalg.cholesky(S0)
+    for i in range(1, N):
+        w, V = sym_eigh(problem.worker_hessian(i, x0, hkeys[i]))
+        w = torch.clamp_min(w - mu, 0.0)
+        for j in range(d - r, d):
+            L = chol_rank1_update(L, V[:, j], w[j])
+    return L / float(math.sqrt(float(N)))

@@ -5,9 +5,11 @@ constants from the paper's assumptions: condition number κ = L_g/μ,
 gradient noise Δ, Hessian noise σ at x⁰, and data heterogeneity.
 
 Problems are frozen dataclasses of tensors on one device.  The engines
-call the batched oracle ``worker_grads`` (all N workers in one product);
-``worker_grad``/``worker_hessian`` are the single-worker forms.  A zero
-noise scale adds exact zeros in the reference, so the draw is skipped.
+call the batched oracle ``worker_grads`` (all N workers in one product,
+and all B seeds of the batch engine in the same product, so A or X is
+read once a round whatever B is); ``worker_grad``/``worker_hessian`` are
+the single-worker forms.  A zero noise scale adds exact zeros in the
+reference, so the draw is skipped.
 """
 
 from __future__ import annotations
@@ -39,6 +41,19 @@ def _grad_noise(scale: float, keys, d: int, device):
 
 def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _per_worker_columns(v, n_workers: int):
+    """(..., N, d) -> (N, d, S): each worker's S = prod(...) vectors as the
+    columns of one right-hand side."""
+    d = v.shape[-1]
+    return v.reshape(-1, n_workers, d).permute(1, 2, 0)
+
+
+def _from_columns(cols, shape):
+    """(N, d, S) -> ``shape`` = (..., N, d), contiguous: the inverse of
+    ``_per_worker_columns``."""
+    return cols.permute(2, 0, 1).reshape(shape).contiguous()
 
 
 @dataclass(frozen=True)
@@ -78,9 +93,11 @@ class Quadratic:
         return 0.5 * (quad.sum(dim=0) / self.num_workers)
 
     def worker_grads(self, xs, keys):
-        """Stochastic ∇F_i(x_i, ξ_i) for every worker: xs (N, d), keys
-        (N, 2) -> (N, d)."""
-        g = torch.bmm(self.A, (xs - self.b)[:, :, None])[:, :, 0]
+        """Stochastic ∇F_i(x_i, ξ_i) for every worker: xs (..., N, d), keys
+        (..., N, 2) -> (..., N, d), one product over A."""
+        N = self.num_workers
+        g = _from_columns(torch.bmm(self.A, _per_worker_columns(
+            xs - self.b, N)), xs.shape)
         if self.grad_noise:
             g = g + _grad_noise(self.grad_noise, keys, self.dim, self.device)
         return g
@@ -109,8 +126,7 @@ def _worker_het_scales(heterogeneity: float, worker_weights,
     if worker_weights is None:
         return torch.full((num_workers,), float(heterogeneity), dtype=_F32,
                           device=device)
-    w = torch.as_tensor(np.asarray(worker_weights, np.float32),
-                        device=device)
+    w = torch.as_tensor(worker_weights, dtype=_F32).to(device)
     if tuple(w.shape) != (num_workers,):
         raise ValueError(f"worker_weights shape {tuple(w.shape)} != "
                          f"({num_workers},)")
@@ -213,11 +229,14 @@ class Logistic:
         return _softplus(-z).sum(dim=0) / (N * n) + reg
 
     def worker_grads(self, xs, keys):
-        """xs (N, d), keys (N, 2) -> (N, d) per-worker gradients."""
-        z = torch.bmm(self.X, xs[:, :, None])[:, :, 0] * self.y   # (N, n)
+        """xs (..., N, d), keys (..., N, 2) -> (..., N, d) per-worker
+        gradients, one product each way over X."""
+        N = self.num_workers
+        y = self.y[:, :, None]
+        z = torch.bmm(self.X, _per_worker_columns(xs, N)) * y  # (N, n, S)
         s = torch.sigmoid(-z)
-        g = -torch.bmm(self.X.transpose(1, 2), (s * self.y)[:, :, None])[
-            :, :, 0] / self.y.shape[1] + self.lam * xs
+        g = -_from_columns(torch.bmm(self.X.transpose(1, 2), s * y),
+                           xs.shape) / self.y.shape[1] + self.lam * xs
         if self.grad_noise:
             g = g + _grad_noise(self.grad_noise, keys, self.dim, self.device)
         return g

@@ -7,7 +7,9 @@ workers (the paper's minimum worker-coverage number τ*).
 
 Keys are host-side (``repro_torch.prng``) and ``t`` is a Python int; the
 draws run on ``device``.  Every policy reproduces the reference's key
-derivation, so the masks are bit-identical to the reference's.
+derivation, so the masks are bit-identical to the reference's.  A stack
+of keys (``(B, 2)``) draws B seeds' masks in one pass, each equal to its
+own key's masks (the batch engine's round).
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ def worker_keep_probs(key, num_workers: int, base: float,
                       heterogeneous: bool, device) -> torch.Tensor:
     """Per-worker keep probabilities, mean ``base``: uniform on the widest
     interval centred on ``base`` inside [0, 1] (half-width
-    ``min(base/2, 1 - base)``)."""
+    ``min(base/2, 1 - base)``); ``key.shape[:-1] + (N,)``, or ``(N,)``
+    when not heterogeneous."""
     if not heterogeneous:
         return torch.full((num_workers,), float(np.float32(base)),
                           device=device)
@@ -61,26 +64,31 @@ def worker_keep_probs(key, num_workers: int, base: float,
 def _bernoulli_mask(policy, kp, km, t, N, Q, device):
     probs = worker_keep_probs(kp, N, policy.keep_prob, policy.heterogeneous,
                               device)
-    return prng.uniform(prng.fold_in(km, t), (N, Q), device) < probs[:, None]
+    return prng.uniform(prng.fold_in(km, t), (N, Q), device) \
+        < probs[..., None]
 
 
 def sample_masks(policy: PolicyConfig, key, t: int, num_workers: int,
                  num_regions: int, device) -> torch.Tensor:
-    """-> bool (N, Q) on ``device``."""
+    """-> bool ``key.shape[:-1] + (N, Q)`` on ``device``."""
     N, Q, t = int(num_workers), int(num_regions), int(t)
-    kp, km = prng.split(prng.fold_in(key, 1))
+    key = prng.as_key(key)
+    batch = key.shape[:-1]
+    pair = prng.split(prng.fold_in(key, 1))
+    kp, km = pair[..., 0, :], pair[..., 1, :]
     if policy.name == "full":
-        m = torch.ones((N, Q), dtype=torch.bool, device=device)
+        m = torch.ones(batch + (N, Q), dtype=torch.bool, device=device)
     elif policy.name == "bernoulli":
         m = _bernoulli_mask(policy, kp, km, t, N, Q, device)
     elif policy.name == "fixed_k":
         perms = prng.permutation(prng.split(prng.fold_in(km, t), N), Q,
-                                 device)                     # (N, Q)
-        m = torch.zeros((N, Q), dtype=torch.bool, device=device)
-        m.scatter_(1, perms[:, :policy.keep_k], True)
+                                 device)                     # (..., N, Q)
+        m = torch.zeros(batch + (N, Q), dtype=torch.bool, device=device)
+        m.scatter_(-1, perms[..., :policy.keep_k], True)
     elif policy.name == "roundrobin":
         q0 = (torch.arange(N, device=device) + t) % Q
-        m = torch.nn.functional.one_hot(q0, Q).to(torch.bool)
+        m = torch.nn.functional.one_hot(q0, Q).to(torch.bool).expand(
+            batch + (N, Q)).clone()
     elif policy.name == "staleness":
         if policy.stale_regions and max(policy.stale_regions) >= Q:
             raise ValueError(
@@ -92,7 +100,7 @@ def sample_masks(policy: PolicyConfig, key, t: int, num_workers: int,
         if not train_now:
             idx = torch.as_tensor(policy.stale_regions, dtype=torch.int64,
                                   device=device)
-            m[:, idx] = False
+            m[..., idx] = False
     else:
         raise ValueError(f"unknown policy {policy.name}")
     if policy.tau_star:
@@ -111,13 +119,14 @@ def staleness_weights(delays: torch.Tensor, gamma: float,
 
 
 def ensure_coverage(mask: torch.Tensor, tau_star) -> torch.Tensor:
-    """Repair ``mask`` so every region is covered by >= tau_star workers.
+    """Repair ``mask`` (..., N, Q) so every region is covered by >= tau_star
+    workers.
 
     Deterministically forces workers (q + j) mod N onto under-covered
     regions, already-covering workers ranked last.  ``tau_star`` is a
-    Python int (at most N, else ValueError) or a (Q,) int tensor of
+    Python int (at most N, else ValueError) or a (..., Q) int tensor of
     per-region targets (clamped at N)."""
-    N, Q = mask.shape
+    N, Q = mask.shape[-2:]
     dev = mask.device
     if isinstance(tau_star, (int, np.integer)):
         if tau_star > N:
@@ -128,10 +137,10 @@ def ensure_coverage(mask: torch.Tensor, tau_star) -> torch.Tensor:
     else:
         tau = torch.clamp_max(torch.as_tensor(tau_star, device=dev)
                               .to(torch.int64), N)
-    count = mask.sum(dim=0)
-    need = torch.clamp_min(tau - count, 0)                      # (Q,)
+    count = mask.sum(dim=-2)
+    need = torch.clamp_min(tau - count, 0)                      # (..., Q)
     j = torch.arange(N, device=dev)[:, None]
     q = torch.arange(Q, device=dev)[None, :]
-    order = (j - q) % N + N * mask.to(torch.int64)              # (N, Q)
-    rank = (order[None, :, :] < order[:, None, :]).sum(dim=1)
-    return mask | (rank < need[None, :])
+    order = (j - q) % N + N * mask.to(torch.int64)              # (..., N, Q)
+    rank = (order[..., None, :, :] < order[..., :, None, :]).sum(dim=-2)
+    return mask | (rank < need[..., None, :])

@@ -7,26 +7,36 @@ step.  Rounds t ≥ 1: workers draw masks m_i^t ~ P, train pruned sub-models
 x_i = x ⊙ m_i, send pruned gradients; the server aggregates per region with
 memory fallback and updates x^{t+1} = x^t − [H]_μ^{-1} ∇F^t.
 
-Two engines, as in the reference:
+Three engines, as in the reference:
 
-* ``_run_scan`` (engine ``"scan"``): the init phase with all N worker
-  gradients in one batched product and the Cholesky factor of [H]_μ
-  computed once; then a Python loop over rounds.  With ``use_kernel``
-  (the default) each round's aggregation goes to the hand-written
-  kernels: ``region_aggregate`` before the dense Cholesky step, and the
-  fused aggregate + diagonal Newton step ``ranl_update`` for
+* ``_run_batch`` (engine ``"batch"``): B independent seeds.  The init
+  phase runs per seed; then ONE Python loop over rounds carries all B
+  seeds on a leading axis, so each round's device-heavy work runs once for
+  all of them: the gradient oracle is one product over A or X with a
+  (B·N)-column right-hand side (A is read once a round whatever B is),
+  the aggregation one launch of the seed-batched kernel, the step one
+  batched ``cholesky_solve`` or diagonal division.  Masks for all seeds
+  come from one draw over the stacked keys, equal to each seed's own;
+* ``_run_scan`` (engine ``"scan"``): the same loop at B = 1.  With
+  ``use_kernel`` (the default) each round's aggregation goes to the
+  hand-written kernels: ``region_aggregate`` before the dense Cholesky
+  step, and the fused aggregate + diagonal Newton step ``ranl_update`` for
   ``curvature="diag"``;
 * ``_run_reference`` (engine ``"reference"``): the host-loop oracle —
   per-worker init gradients, plain aggregation, a fresh factorization of
   [H]_μ every round.  Dense ``eigh`` curvature only.
 
+Round variants, each a branch of the loop as in the reference: quorum
+rounds (``RanlOptions.quorum``) commit at the quorum deadline and fold
+late work through a ``(max_delay, d)`` late buffer; compressed uplinks
+(``compression``) carry an (N, d) error-feedback residual.  Both bypass
+the fused ``ranl_update`` kernel, which has no late-fold or
+error-feedback form.  ``hessian_rank`` builds [H]_μ by low-rank updates.
+
 Keys are host-side (``repro_torch.prng``) and reproduce the reference's
 streams, so masks, coverage, ``comm_floats`` and the coverage minima equal
 the reference's exactly.  Per-round traces stay on the device and are
-stacked after the loop; only ``tau_star``/``tau_covered`` become Python
-ints, once.  This slice carries the flat, synchronous, uncompressed
-round; quorum, compression and hierarchy rounds arrive with ROADMAP
-Queue 1 items 9–11.
+stacked after the loop.  Hierarchy arrives with ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -38,8 +48,9 @@ import torch
 
 from .. import prng
 from ..kernels import ops as kernel_ops
-from .aggregation import server_aggregate
-from .compression import uplink_bytes
+from .aggregation import quorum_aggregate, server_aggregate
+from .compression import compressed_quorum_aggregate, \
+    compressed_server_aggregate, lowrank_hmu_factor, uplink_bytes
 from .hessian import cho_factor, cho_solve, hutchinson_diag, project_diag, \
     project_psd, project_psd_ns, running_mean_hessian, solve_projected
 from .options import RanlOptions
@@ -56,22 +67,24 @@ class RanlResult:
     coverage: torch.Tensor     # (T,) fraction of regions covered per round
     comm_floats: torch.Tensor  # (T,) int32 uplink floats transmitted
     tau_star: int              # min worker coverage over rounds/regions
-                               # (0 if any region went uncovered)
+                               # (0 if any region went uncovered); a (B,)
+                               # int32 tensor for batched runs
     tau_covered: int = 0       # min coverage over COVERED regions only
     round_time: torch.Tensor = None   # (T,) simulated wall-clock per round
     max_stale: torch.Tensor = None    # (T,) int32 max region staleness
     comm_bytes: torch.Tensor = None   # (T,) modeled uplink bytes
     pod_bytes: torch.Tensor = None    # (T,) inter-pod bytes (0: flat runs)
     xs_pods: torch.Tensor = None      # hierarchical runs only
+    # batched runs carry a leading seed axis (B, ...) on every array
 
 
 def _init_phase(problem, k_init, *, mu: float, lr: float, curvature: str,
                 hutch_samples: int, projection: str = "eigh",
-                ns_iters=60):
-    """Alg. 1 lines 1–8.  Returns (x1, C0, chol, hdiag): the post-init
-    iterate, the seeded gradient memory, and the curvature state — the
-    lower Cholesky factor of [H]_μ (dense) or the Hutchinson diagonal
-    (diag); the unused one is None."""
+                ns_iters=60, hessian_rank: int | None = None):
+    """Alg. 1 lines 1–8 for one seed.  Returns (x1, C0, chol, hdiag): the
+    post-init iterate, the seeded gradient memory, and the curvature
+    state — the lower Cholesky factor of [H]_μ (dense) or the Hutchinson
+    diagonal (diag); the unused one is None."""
     N, d = problem.num_workers, problem.dim
     x0 = torch.zeros(d, dtype=_F32, device=problem.device)
     hkeys = prng.split(prng.fold_in(k_init, 0), N)
@@ -79,7 +92,13 @@ def _init_phase(problem, k_init, *, mu: float, lr: float, curvature: str,
     g0 = problem.worker_grads(x0.expand(N, d), gkeys)       # (N, d)
     g0_mean = g0.sum(dim=0) / N
 
-    if curvature == "dense":
+    if curvature == "dense" and hessian_rank is not None:
+        # worker 0's Hessian projected once, the top-r eigenpairs of the
+        # others folded by Cholesky rank-1 updates (compression.py)
+        chol, hdiag = lowrank_hmu_factor(problem, x0, hkeys, mu,
+                                         rank=hessian_rank), None
+        step0 = cho_solve(chol, g0_mean)
+    elif curvature == "dense":
         # eager left-to-right fold: the reference's summation order
         H = running_mean_hessian(problem, x0, hkeys)
         if projection == "ns":
@@ -102,44 +121,59 @@ def _init_phase(problem, k_init, *, mu: float, lr: float, curvature: str,
     return x0 - lr * step0, g0, chol, hdiag
 
 
+def _init_seeds(problem, k_init, **cfg):
+    """``_init_phase`` for each of the B keys of ``k_init`` (B, 2), one
+    after another; returns the four results stacked on a seed axis (None
+    stays None)."""
+    outs = [_init_phase(problem, k, **cfg) for k in k_init]
+    return tuple(None if col[0] is None else torch.stack(col)
+                 for col in zip(*outs))
+
+
 def _round_diagnostics(covered_q, count_q, n_workers: int):
-    """Per-round (coverage_mean, min_count, min_covered_count): the raw
-    count minimum feeds ``tau_star``; uncovered regions map to N in the
-    second, which feeds ``tau_covered``.  The mean is the sum times the
-    f32 reciprocal of Q, which is how the reference's mean evaluates."""
-    inv_q = float(np.float32(1.0) / np.float32(covered_q.shape[0]))
-    return (covered_q.to(_F32).sum() * inv_q, count_q.min(),
+    """Per-round (coverage_mean, min_count, min_covered_count), each over
+    the last (region) axis: the raw count minimum feeds ``tau_star``;
+    uncovered regions map to N in the second, which feeds
+    ``tau_covered``.  The mean is the sum times the f32 reciprocal of Q,
+    which is how the reference's mean evaluates."""
+    inv_q = float(np.float32(1.0) / np.float32(covered_q.shape[-1]))
+    return (covered_q.to(_F32).sum(dim=-1) * inv_q, count_q.amin(dim=-1),
             torch.where(covered_q, count_q,
-                        torch.full_like(count_q, n_workers)).min())
+                        torch.full_like(count_q, n_workers)).amin(dim=-1))
+
+
+def _trace_row(Mx, count_q, round_t, telem, ubytes, n_workers: int):
+    """One round's device-side trace entries, each (...,) over seeds:
+    (coverage, comm_floats, min_count, min_covered_count, round_time,
+    max_stale, comm_bytes)."""
+    cov_mean, min_count, min_cov_count = _round_diagnostics(
+        count_q > 0, count_q, n_workers)
+    return (cov_mean, Mx.sum(dim=(-2, -1)).to(torch.int32), min_count,
+            min_cov_count, round_t, telem.stale_q.amax(dim=-1),
+            ubytes.sum(dim=-1))
+
+
+def _stack_rows(rows, batch: tuple, device):
+    """Per-round rows -> (cov, comm, min_counts, min_cov_counts, times,
+    stale, cbytes), each ``batch + (T,)``."""
+    if not rows:
+        empty_f = torch.zeros(batch + (0,), dtype=_F32, device=device)
+        empty_i = torch.zeros(batch + (0,), dtype=torch.int32,
+                              device=device)
+        return (empty_f, empty_i, empty_i, empty_i, empty_f, empty_i,
+                empty_f)
+    return tuple(torch.stack(col, dim=-1) for col in zip(*rows))
 
 
 def _tau_pair(min_counts, min_cov_counts, n_workers: int):
-    """Cap the over-rounds minima at N -> (tau_star, tau_covered) ints."""
-    tau = torch.stack([min_counts.min(), min_cov_counts.min()])
-    return tuple(min(n_workers, v) for v in tau.tolist())
-
-
-def _trace_row(Mx, count_q, telem, ubytes, n_workers: int):
-    """One round's device-side trace entries: (coverage, comm_floats,
-    min_count, min_covered_count, round_time, max_stale, comm_bytes)."""
-    cov_mean, min_count, min_cov_count = _round_diagnostics(
-        count_q > 0, count_q, n_workers)
-    return (cov_mean, Mx.sum().to(torch.int32), min_count, min_cov_count,
-            telem.times.max(), telem.stale_q.max(), ubytes.sum())
-
-
-def _stack_rows(rows, n_workers: int, device):
-    """Per-round rows -> (cov, comm, tau, tau_cov, times, stale, cbytes),
-    with the two coverage minima as Python ints (the run's one sync)."""
-    if not rows:
-        empty_f = torch.zeros((0,), dtype=_F32, device=device)
-        empty_i = torch.zeros((0,), dtype=torch.int32, device=device)
-        return (empty_f, empty_i, n_workers, n_workers, empty_f, empty_i,
-                empty_f)
-    cov, comm, min_counts, min_cov_counts, times, stale, cbytes = (
-        torch.stack(col) for col in zip(*rows))
-    tau, tau_cov = _tau_pair(min_counts, min_cov_counts, n_workers)
-    return cov, comm, tau, tau_cov, times, stale, cbytes
+    """Over-rounds minima capped at N -> (tau_star, tau_covered), int32
+    over the leading axes (N when there are no rounds)."""
+    def cap(m):
+        if not m.shape[-1]:
+            return torch.full(m.shape[:-1], n_workers, dtype=torch.int32,
+                              device=m.device)
+        return torch.clamp_max(m.amin(dim=-1), n_workers).to(torch.int32)
+    return cap(min_counts), cap(min_cov_counts)
 
 
 def _controller_mask(controller, cost, ctrl_state, telem, kt, t: int,
@@ -150,18 +184,57 @@ def _controller_mask(controller, cost, ctrl_state, telem, kt, t: int,
     M, ctrl_state = controller.step(ctrl_state, telem, kt, t, num_workers,
                                     num_regions, device)
     if cost.dropout_prob > 0.0 or cost.churn_period > 0:
-        M = M & available(cost, kt, t)[:, None]
+        M = M & available(cost, kt, t)[..., None]
     return M, ctrl_state
 
 
-def _observe_round(cost, telem, M_full, count_q, sizes_q, t: int,
-                   ubytes=None):
-    """Fold one round's observations into the telemetry."""
-    from ..hetero.controller import next_telemetry
-    from ..hetero.cost import worker_times
-    work = (M_full * sizes_q[None, :]).sum(dim=1).to(torch.int32)
+def _clock(cost, M, sizes_q, ubytes, t: int, qspec):
+    """The round's simulated clock: (work, times, round_time, on_time,
+    delays).  Synchronous rounds end at the slowest participant; quorum
+    rounds at the quorum deadline, with each worker's on-time flag and
+    delay (None for synchronous rounds)."""
+    from ..hetero.cost import quorum_split, worker_times
+    work = (M * sizes_q).sum(dim=-1).to(torch.int32)
     times = worker_times(cost, work, t, ubytes)
-    return next_telemetry(telem, count_q, work, times)
+    if qspec is None:
+        return work, times, times.amax(dim=-1), None, None
+    deadline, on_time, delays = quorum_split(
+        times, M, quorum=qspec.quorum, quorum_tau=qspec.quorum_tau,
+        max_delay=qspec.max_delay)
+    return work, times, deadline, on_time, delays
+
+
+def _aggregate(G, Mx, C, err, late_buf, on_time, delays, *, region_ids,
+               num_regions: int, qspec, comp, use_kernel: bool):
+    """One round's server aggregation, every branch of the reference's:
+    synchronous or quorum, plain or compressed.  Returns (g, C, err,
+    late_buf)."""
+    if qspec is None and comp is None:
+        g, C = server_aggregate(G, Mx, C, use_kernel=use_kernel)
+    elif qspec is None:
+        g, C, err = compressed_server_aggregate(
+            G, Mx, C, err, comp, region_ids=region_ids,
+            num_regions=num_regions)
+    elif comp is None:
+        g, C, late_buf = quorum_aggregate(
+            G, Mx, C, on_time, delays, late_buf, gamma=qspec.gamma,
+            max_delay=qspec.max_delay)
+    else:
+        g, C, err, late_buf = compressed_quorum_aggregate(
+            G, Mx, C, err, on_time, delays, late_buf, comp,
+            region_ids=region_ids, num_regions=num_regions,
+            gamma=qspec.gamma, max_delay=qspec.max_delay)
+    return g, C, err, late_buf
+
+
+def _observe(telem, M, on_time, work, times):
+    """-> (count_q, telemetry): the round's coverage counts (on-time
+    workers only in quorum rounds) folded into the telemetry."""
+    from ..hetero.controller import next_telemetry
+    if on_time is not None:
+        M = M & on_time[..., None]
+    count_q = M.sum(dim=-2).to(torch.int32)
+    return count_q, next_telemetry(telem, count_q, work, times)
 
 
 def _hetero_defaults(problem, policy, controller, cost):
@@ -182,50 +255,64 @@ def _hetero_defaults(problem, policy, controller, cost):
 
 def _scan_rounds(problem, k_loop, x1, C0, chol, hdiag, cost, *,
                  num_rounds: int, num_regions: int, controller, mu: float,
-                 lr: float, curvature: str, use_kernel: bool):
-    """Alg. 1 lines 9–23 as a Python loop over rounds; returns (xs, dist,
-    losses, cov, comm, tau, tau_cov, times, stale, cbytes, pbytes)."""
+                 lr: float, curvature: str, use_kernel: bool, qspec=None,
+                 comp=None):
+    """Alg. 1 lines 9–23 as a Python loop over rounds, for B seeds at once
+    on a leading axis: ``k_loop`` (B, 2), ``x1`` (B, d), ``C0`` (B, N, d),
+    ``chol`` (B, d, d) or ``hdiag`` (B, d).  The loop state holds (x, C,
+    the error-feedback residual, the late buffer, the controller state,
+    the telemetry); the residual and the buffer exist only when
+    compression or quorum rounds are on.  Returns (xs, dist, losses, cov,
+    comm, min_counts, min_cov_counts, times, stale, cbytes), each with the
+    seed axis first."""
     from ..hetero.controller import initial_telemetry
     N, d, dev = problem.num_workers, problem.dim, problem.device
-    Q = num_regions
+    B, Q = k_loop.shape[0], num_regions
     region_ids = contiguous_regions(d, Q, dev)
     sizes_q = region_sizes(region_ids, Q)
     x, C = x1, C0
-    ctrl_state = controller.init_state(N, Q)
-    telem = initial_telemetry(N, Q, dev)
-    xs = [torch.zeros(d, dtype=_F32, device=dev), x1]
+    err = (None if comp is None
+           else torch.zeros((B, N, d), dtype=_F32, device=dev))
+    late_buf = (None if qspec is None else torch.zeros(
+        (B, qspec.max_delay, d), dtype=_F32, device=dev))
+    ctrl_state = controller.init_state(N, Q, dev)
+    telem = initial_telemetry(N, Q, dev, batch=(B,))
+    fused = (curvature == "diag" and use_kernel and qspec is None
+             and comp is None)
+    xs = [torch.zeros((B, d), dtype=_F32, device=dev), x1]
     rows = []
     for t in range(1, num_rounds + 1):
-        kt = prng.fold_in(k_loop, t)
+        kt = prng.fold_in(k_loop, t)                     # (B, 2)
         M, ctrl_state = _controller_mask(controller, cost, ctrl_state,
-                                         telem, kt, t, N, Q, dev)  # (N, Q)
-        Mx = expand_mask(M, region_ids)                  # (N, d) bool
-        x_pruned = torch.where(Mx, x[None, :], 0.0)      # x ⊙ m_i
-        gk = prng.split(prng.fold_in(kt, 7), N)
+                                         telem, kt, t, N, Q, dev)
+        Mx = expand_mask(M, region_ids)                  # (B, N, d) bool
+        x_pruned = torch.where(Mx, x[:, None, :], 0.0)   # x ⊙ m_i
+        gk = prng.split(prng.fold_in(kt, 7), N)          # (B, N, 2)
         G = problem.worker_grads(x_pruned, gk) * Mx      # ∇F_i ⊙ m_i
-        ubytes = uplink_bytes(None, M, sizes_q)          # (N,) wire model
-        if curvature == "diag" and use_kernel:
+        ubytes = uplink_bytes(comp, M, sizes_q)          # (B, N) wire model
+        work, times, round_t, on_time, delays = _clock(cost, M, sizes_q,
+                                                       ubytes, t, qspec)
+        if fused:
             x, C = kernel_ops.ranl_update(x, hdiag, G, Mx, C, mu=mu, lr=lr)
         else:
             # dense rounds aggregate through the region_aggregate kernel
             # (the reference's dense branch always takes its jnp form)
-            g, C = server_aggregate(G, Mx, C, use_kernel=use_kernel)
+            g, C, err, late_buf = _aggregate(
+                G, Mx, C, err, late_buf, on_time, delays,
+                region_ids=region_ids, num_regions=Q, qspec=qspec,
+                comp=comp, use_kernel=use_kernel)
             if curvature == "dense":
                 step = cho_solve(chol, g)
             else:
                 step = g / project_diag(hdiag, mu)
             x = x - lr * step
-        count_q = M.sum(dim=0).to(torch.int32)
-        telem = _observe_round(cost, telem, M, count_q, sizes_q, t, ubytes)
+        count_q, telem = _observe(telem, M, on_time, work, times)
         xs.append(x)
-        rows.append(_trace_row(Mx, count_q, telem, ubytes, N))
-    xs = torch.stack(xs)
-    cov, comm, tau, tau_cov, times, stale, cbytes = _stack_rows(rows, N, dev)
-    pbytes = torch.zeros_like(cbytes)
-    dist = ((xs - problem.x_star[None, :]) ** 2).sum(dim=1)
-    losses = problem.losses(xs)
-    return (xs, dist, losses, cov, comm, tau, tau_cov, times, stale,
-            cbytes, pbytes)
+        rows.append(_trace_row(Mx, count_q, round_t, telem, ubytes, N))
+    xs = torch.stack(xs, dim=1)                          # (B, T+2, d)
+    dist = ((xs - problem.x_star) ** 2).sum(dim=-1)
+    losses = problem.losses(xs.reshape(-1, d)).reshape(B, -1)
+    return (xs, dist, losses, *_stack_rows(rows, (B,), dev))
 
 
 def _config(problem, *, mu, lr, curvature, hutchinson_samples,
@@ -241,8 +328,8 @@ def _config(problem, *, mu, lr, curvature, hutchinson_samples,
 
 def _subsampled(result: RanlResult, record_every: int) -> RanlResult:
     """Keep x⁰, x¹, every ``record_every``-th round's iterate and the
-    last one on ``xs``/``dist_sq``/``losses``; per-round traces stay full
-    length."""
+    last one on ``xs``/``dist_sq``/``losses`` (batched runs along their
+    iterate axis); per-round traces stay full length."""
     k = int(record_every)
     if k <= 1:
         return result
@@ -250,59 +337,89 @@ def _subsampled(result: RanlResult, record_every: int) -> RanlResult:
     rounds = sorted(set(range(k, T + 1, k)) | ({T} if T > 0 else set()))
     idx = torch.as_tensor([0, 1] + [1 + r for r in rounds],
                           device=result.xs.device)
-    return dc_replace(result, xs=result.xs.index_select(0, idx),
-                      dist_sq=result.dist_sq.index_select(0, idx),
-                      losses=result.losses.index_select(0, idx))
+    return dc_replace(result, xs=result.xs.index_select(-2, idx),
+                      dist_sq=result.dist_sq.index_select(-1, idx),
+                      losses=result.losses.index_select(-1, idx))
 
 
-def _scan_args(problem, key, opts: RanlOptions, *, controller=None,
+def _run_seeds(problem, keys, opts: RanlOptions, *, controller=None,
                cost=None):
-    """-> (args, static) for ``_scan_rounds``; the init phase runs here."""
+    """Init each of the B keys (B, 2), then run the rounds of all B seeds
+    in one loop.  Returns ``_scan_rounds``'s arrays."""
     ctrl, cost = _hetero_defaults(problem, opts.policy, controller, cost)
     projection = opts.projection or "eigh"
     cfg = _config(problem, mu=opts.mu, lr=opts.lr, curvature=opts.curvature,
                   hutchinson_samples=opts.hutchinson_samples,
                   projection=projection)
     hutch = cfg.pop("hutch_samples")
-    k_init, k_loop = prng.split(key)
-    x1, C0, chol, hdiag = _init_phase(
+    pair = prng.split(keys)
+    k_init, k_loop = pair[:, 0], pair[:, 1]
+    x1, C0, chol, hdiag = _init_seeds(
         problem, k_init, mu=cfg["mu"], lr=cfg["lr"],
         curvature=cfg["curvature"], hutch_samples=hutch,
-        projection=projection, ns_iters=opts.ns_iters)
-    args = (problem, k_loop, x1, C0, chol, hdiag, cost)
-    static = dict(num_rounds=int(opts.num_rounds),
-                  num_regions=int(opts.num_regions), controller=ctrl,
-                  use_kernel=bool(opts.use_kernel), **cfg)
-    return args, static
+        projection=projection, ns_iters=opts.ns_iters,
+        hessian_rank=opts.hessian_rank)
+    return _scan_rounds(
+        problem, k_loop, x1, C0, chol, hdiag, cost,
+        num_rounds=int(opts.num_rounds), num_regions=int(opts.num_regions),
+        controller=ctrl, use_kernel=bool(opts.use_kernel),
+        qspec=opts.quorum_spec(), comp=opts.compression_spec(), **cfg)
+
+
+def _result(arrays, n_workers: int, record_every: int,
+            seed: int | None = None) -> RanlResult:
+    """``_scan_rounds``'s arrays -> RanlResult; ``seed`` picks one seed
+    (the scan engine), with the coverage minima as Python ints."""
+    (xs, dist, losses, cov, comm, min_counts, min_cov, times, stale,
+     cbytes) = arrays if seed is None else (a[seed] for a in arrays)
+    tau, tau_cov = _tau_pair(min_counts, min_cov, n_workers)
+    if seed is not None:              # the run's one sync
+        tau, tau_cov = (int(v) for v in torch.stack([tau, tau_cov]).tolist())
+    return _subsampled(RanlResult(
+        xs=xs, dist_sq=dist, losses=losses, coverage=cov, comm_floats=comm,
+        tau_star=tau, tau_covered=tau_cov, round_time=times,
+        max_stale=stale, comm_bytes=cbytes,
+        pod_bytes=torch.zeros_like(cbytes)), record_every)
 
 
 def _run_scan(problem, key, opts: RanlOptions, *, controller=None,
               cost=None) -> RanlResult:
-    """Engine ``"scan"`` of ``repro_torch.run``.
+    """Engine ``"scan"`` of ``repro_torch.run``: one seed.
 
     ``curvature="dense"`` keeps the exact Definition-4 projection
-    (``projection`` ``"eigh"`` or ``"ns"``); ``"diag"`` uses a Hutchinson
-    diagonal and the fused ``ranl_update`` kernel (``use_kernel=False``
-    for the plain aggregation and step)."""
-    args, static = _scan_args(problem, key, opts, controller=controller,
-                              cost=cost)
-    (xs, dist, losses, cov, comm, tau, tau_cov, times, stale,
-     cbytes, pbytes) = _scan_rounds(*args, **static)
-    return _subsampled(RanlResult(
-        xs=xs, dist_sq=dist, losses=losses, coverage=cov,
-        comm_floats=comm, tau_star=tau, tau_covered=tau_cov,
-        round_time=times, max_stale=stale, comm_bytes=cbytes,
-        pod_bytes=pbytes), opts.record_every)
+    (``projection`` ``"eigh"`` or ``"ns"``; ``hessian_rank`` for the
+    low-rank init); ``"diag"`` uses a Hutchinson diagonal and the fused
+    ``ranl_update`` kernel (``use_kernel=False`` for the plain aggregation
+    and step)."""
+    arrays = _run_seeds(problem, prng.as_key(key)[None], opts,
+                        controller=controller, cost=cost)
+    return _result(arrays, problem.num_workers, opts.record_every, seed=0)
+
+
+def _run_batch(problem, keys, opts: RanlOptions, *, controller=None,
+               cost=None) -> RanlResult:
+    """Engine ``"batch"`` of ``repro_torch.run``: B seeds, keys (B, 2).
+
+    Every array of the result carries a leading seed axis; ``tau_star``
+    and ``tau_covered`` are (B,) int32 tensors.  Row b equals a
+    ``"scan"`` run on ``keys[b]``: the same masks and integer traces, and
+    iterates within the rounding of a product over B columns instead of
+    one."""
+    arrays = _run_seeds(problem, keys, opts, controller=controller,
+                        cost=cost)
+    return _result(arrays, problem.num_workers, opts.record_every)
 
 
 def _reference_program(problem, key, cost, *, opts: RanlOptions,
                        controller):
     """The reference engine's loop: per-worker init gradients, plain
-    aggregation, and [H]_μ re-factored for every solve.  Returns
-    ``(xs, cov, comm, tau, tau_cov, times, stale, cbytes)``."""
+    aggregation (every quorum and compression branch of the reference's),
+    and [H]_μ re-factored for every solve.  Returns ``(xs, cov, comm,
+    min_counts, min_cov_counts, times, stale, cbytes)``."""
     from ..hetero.controller import initial_telemetry
     N, d, dev = problem.num_workers, problem.dim, problem.device
     Q = opts.num_regions
+    qspec, comp = opts.quorum_spec(), opts.compression_spec()
     mu = problem.mu if opts.mu is None else opts.mu
     lr = float(opts.lr)
     region_ids = contiguous_regions(d, Q, dev)
@@ -320,8 +437,12 @@ def _reference_program(problem, key, cost, *, opts: RanlOptions,
 
     xs = [x0, x]
     rows = []
-    ctrl_state = controller.init_state(N, Q)
+    ctrl_state = controller.init_state(N, Q, dev)
     telem = initial_telemetry(N, Q, dev)
+    err = None if comp is None else torch.zeros((N, d), dtype=_F32,
+                                                 device=dev)
+    late_buf = None if qspec is None else torch.zeros(
+        (qspec.max_delay, d), dtype=_F32, device=dev)
     for t in range(1, opts.num_rounds + 1):
         kt = prng.fold_in(k_loop, t)
         M, ctrl_state = _controller_mask(controller, cost, ctrl_state, telem,
@@ -330,14 +451,17 @@ def _reference_program(problem, key, cost, *, opts: RanlOptions,
         x_pruned = torch.where(Mx, x[None, :], 0.0)
         gk = prng.split(prng.fold_in(kt, 7), N)
         G = problem.worker_grads(x_pruned, gk) * Mx
-        ubytes = uplink_bytes(None, M, sizes_q)
-        g, C = server_aggregate(G, Mx, C)
-        count_q = M.sum(dim=0).to(torch.int32)
-        telem = _observe_round(cost, telem, M, count_q, sizes_q, t, ubytes)
+        ubytes = uplink_bytes(comp, M, sizes_q)
+        work, times, round_t, on_time, delays = _clock(cost, M, sizes_q,
+                                                       ubytes, t, qspec)
+        g, C, err, late_buf = _aggregate(
+            G, Mx, C, err, late_buf, on_time, delays, region_ids=region_ids,
+            num_regions=Q, qspec=qspec, comp=comp, use_kernel=False)
+        count_q, telem = _observe(telem, M, on_time, work, times)
         x = x - lr * solve_projected(H_mu, g)
         xs.append(x)
-        rows.append(_trace_row(Mx, count_q, telem, ubytes, N))
-    return (torch.stack(xs), *_stack_rows(rows, N, dev))
+        rows.append(_trace_row(Mx, count_q, round_t, telem, ubytes, N))
+    return (torch.stack(xs), *_stack_rows(rows, (), dev))
 
 
 def _run_reference(problem, key, opts: RanlOptions, *, controller=None,
@@ -345,8 +469,10 @@ def _run_reference(problem, key, opts: RanlOptions, *, controller=None,
     """Engine ``"reference"`` of ``repro_torch.run``: the host-loop oracle
     the scan engine is held against (dense ``eigh`` only)."""
     ctrl, cost = _hetero_defaults(problem, opts.policy, controller, cost)
-    xs, cov, comm, tau, tau_cov, times, stale, cbytes = _reference_program(
-        problem, key, cost, opts=opts, controller=ctrl)
+    xs, cov, comm, min_counts, min_cov, times, stale, cbytes = \
+        _reference_program(problem, key, cost, opts=opts, controller=ctrl)
+    tau, tau_cov = (int(v) for v in _tau_pair(min_counts, min_cov,
+                                              problem.num_workers))
     dist = ((xs - problem.x_star[None, :]) ** 2).sum(dim=1)
     losses = torch.stack([problem.loss(xi) for xi in xs])
     return _subsampled(RanlResult(

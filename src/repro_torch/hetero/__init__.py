@@ -1,19 +1,36 @@
-"""Heterogeneity subsystem: cost models and mask controllers."""
+"""Heterogeneity subsystem: cost models, cluster scenarios and mask
+controllers."""
 
 from .controller import (  # noqa: F401
     Controller,
     PolicyController,
+    QuorumController,
+    ResourceProportionalController,
+    StalenessBoundedController,
     Telemetry,
     as_controller,
     initial_telemetry,
+    make_controller,
     next_telemetry,
 )
 from .cost import (  # noqa: F401
     CostModel,
     available,
     capacity,
+    on_device,
+    pareto_cost,
+    quorum_deadline,
+    quorum_split,
     round_time,
     time_to_target,
     uniform_cost,
+    with_availability,
     worker_times,
+)
+from .scenarios import (  # noqa: F401
+    SCENARIOS,
+    Scenario,
+    dirichlet_weights,
+    make_scenario,
+    scenario_problem,
 )

@@ -6,15 +6,18 @@
 ``work_i`` is the number of coordinates worker i trains this round and
 ``bytes_i`` what it uplinks (4·work_i uncompressed).  A cost model without
 availability dynamics consumes no random draws, so default runs match the
-reference's bit for bit.  This slice ports the synchronous clock; the
-quorum split, pod topology and overlap credit arrive with ROADMAP Queue 1
-items 10–12.
+reference's bit for bit.  ``quorum_split`` is the semi-synchronous clock:
+the round commits at the k-th order statistic of participant times.
+Every function broadcasts over a leading seed axis of its per-round
+inputs (keys ``(..., 2)``, work and masks ``(..., N)``/``(..., N, Q)``).
+The pod topology and the overlap credit arrive with ROADMAP Queue 1
+items 11–12.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -57,9 +60,43 @@ def uniform_cost(num_workers: int, device, *, rate: float = 1.0,
                              device=device))
 
 
+def on_device(cost: CostModel, device) -> CostModel:
+    """The same cost model with its arrays on ``device``."""
+    return replace(cost, compute_rate=cost.compute_rate.to(device),
+                   bandwidth=cost.bandwidth.to(device))
+
+
+def pareto_cost(key, num_workers: int, *, alpha: float = 1.2,
+                bandwidth: float = np.inf, device=None) -> CostModel:
+    """Heavy-tailed compute rates: rate_i = 1 / Pareto(alpha) sample, with
+    u uniform on [1e-4, 1).
+
+    Computed on the host and then moved, so the card and the host get the
+    same rates bit for bit; the power runs in float64 on the f32 base and
+    exponent and rounds once, within an ulp of the reference's f32 pow."""
+    u = prng.uniform(key, (num_workers,), "cpu", minval=1e-4, maxval=1.0)
+    base = (1.0 - u).to(torch.float64)
+    slowdown = torch.pow(base, float(np.float32(-1.0 / alpha))).to(_F32)
+    cost = CostModel(compute_rate=1.0 / slowdown,
+                     bandwidth=torch.full((num_workers,), bandwidth,
+                                          dtype=_F32))
+    return cost if device is None else on_device(cost, device)
+
+
+def with_availability(cost: CostModel, *, dropout_prob: float = 0.0,
+                      churn_period: int = 0, churn_cohorts: int = 4,
+                      diurnal_period: int = 0,
+                      diurnal_amplitude: float = 0.0) -> CostModel:
+    return replace(cost, dropout_prob=float(dropout_prob),
+                   churn_period=int(churn_period),
+                   churn_cohorts=int(churn_cohorts),
+                   diurnal_period=int(diurnal_period),
+                   diurnal_amplitude=float(diurnal_amplitude))
+
+
 def available(cost: CostModel, key, t: int) -> torch.Tensor:
-    """(N,) bool — which workers participate in round ``t``.  ``key`` is
-    the round key; dropout folds the tag 23 into it."""
+    """(..., N) bool — which workers participate in round ``t``.  ``key``
+    is the round key (..., 2); dropout folds the tag 23 into it."""
     N = cost.num_workers
     dev = cost.compute_rate.device
     avail = torch.ones((N,), dtype=torch.bool, device=dev)
@@ -87,8 +124,8 @@ def capacity(cost: CostModel, t: int) -> torch.Tensor:
 
 def worker_times(cost: CostModel, work, t: int,
                  uplink_bytes=None) -> torch.Tensor:
-    """(N,) simulated time per worker for a round; workers with no work
-    cost nothing.  ``uplink_bytes`` None = 4 bytes per coordinate."""
+    """(..., N) simulated time per worker for a round; workers with no
+    work cost nothing.  ``uplink_bytes`` None = 4 bytes per coordinate."""
     work = work.to(_F32)
     if uplink_bytes is None:
         uplink_bytes = 4.0 * work
@@ -100,6 +137,55 @@ def worker_times(cost: CostModel, work, t: int,
 def round_time(cost: CostModel, work, t: int):
     """Scalar simulated wall-clock of one synchronous round."""
     return worker_times(cost, work, t).max()
+
+
+def quorum_deadline(times, masks, *, quorum: float,
+                    quorum_tau: int | None = None):
+    """Commit time of a semi-synchronous round (see ``quorum_split``)."""
+    return quorum_split(times, masks, quorum=quorum, quorum_tau=quorum_tau,
+                        max_delay=1)[0]
+
+
+def quorum_split(times, masks, *, quorum: float,
+                 quorum_tau: int | None = None, max_delay: int = 1):
+    """-> (deadline (...,), on_time (..., N) bool, delays (..., N) int32).
+
+    ``times``: (..., N) per-worker times; ``masks``: (..., N, Q) the
+    round's masks after availability (an all-False row does not take
+    part).  Region q is quorum-covered once ``min(quorum_tau, count_q)``
+    of its participants have finished (``None``: all of them); the round
+    commits at the earliest participant time by which ``ceil(quorum·Q)``
+    regions are covered.  A late worker is ``ceil(time/deadline) − 1``
+    rounds late, clipped to ``max_delay + 1``.  The sort is stable, as
+    the reference's: tied times (common under a uniform cost) keep
+    worker order."""
+    N, Q = masks.shape[-2:]
+    required = int(np.ceil(float(quorum) * Q))
+    times = times.to(_F32)
+    participating = masks.any(dim=-1)
+    t_eff = torch.where(participating, times,
+                        torch.full_like(times, math.inf))
+    order = torch.argsort(t_eff, dim=-1, stable=True)
+    t_sorted = torch.take_along_dim(t_eff, order, dim=-1)
+    cum = torch.cumsum(torch.take_along_dim(
+        masks.to(torch.int32), order[..., None], dim=-2), dim=-2)
+    full = cum[..., -1, :]                                     # (..., Q)
+    floor = full if quorum_tau is None else torch.clamp_max(
+        full, int(quorum_tau))
+    n_ok = (cum >= floor[..., None, :]).sum(dim=-1)            # (..., N)
+    k_star = torch.argmax((n_ok >= required).to(torch.int32), dim=-1)
+    deadline = torch.take_along_dim(t_sorted, k_star[..., None],
+                                    dim=-1)[..., 0]
+    deadline = torch.where(torch.isfinite(deadline), deadline,
+                           torch.zeros_like(deadline))
+    on_time = participating & (times <= deadline[..., None])
+    ratio = times / torch.clamp_min(deadline, 1e-30)[..., None]
+    delays = torch.ceil(ratio).to(torch.int32) - 1
+    delays = torch.clamp(delays, 0, int(max_delay) + 1)
+    delays = torch.where(on_time | ~participating,
+                         torch.zeros_like(delays),
+                         torch.clamp_min(delays, 1))
+    return deadline, on_time, delays
 
 
 def time_to_target(trace, round_times, target: float, *,

@@ -40,6 +40,35 @@ def problem_from_arrays(kind: str, arrays: dict, scalars: dict,
                     lam=float(scalars["lam"]), **common)
 
 
+_COST_STATICS = ("overhead", "dropout_prob", "churn_period", "churn_cohorts",
+                 "diurnal_period", "diurnal_amplitude")
+
+
+def cost_from_arrays(arrays: dict, statics: dict, device=None):
+    """The reference's ``CostModel`` -> the port's.
+
+    ``arrays``: ``compute_rate`` and ``bandwidth`` (and ``pod_bw``, which
+    must be None until the pod topology is ported); ``statics``: the
+    scalar fields (``overhead``, ``dropout_prob``, ``churn_period``,
+    ``churn_cohorts``, ``diurnal_period``, ``diurnal_amplitude``, and
+    ``pod_latency``/``overlap_credit``, which must be 0)."""
+    from .hetero.cost import CostModel
+    if arrays.get("pod_bw") is not None or statics.get("pod_latency", 0.0):
+        raise NotImplementedError(
+            "a cost model with a pod topology is not ported yet: ROADMAP "
+            "Queue 1 item 11 (hierarchy)")
+    if statics.get("overlap_credit", 0.0):
+        raise NotImplementedError(
+            "overlap_credit is not ported yet: ROADMAP Queue 1 item 12")
+    dev = resolve_device(device)
+    return CostModel(
+        compute_rate=torch.tensor(np.asarray(arrays["compute_rate"],
+                                             np.float32), device=dev),
+        bandwidth=torch.tensor(np.asarray(arrays["bandwidth"], np.float32),
+                               device=dev),
+        **{k: statics[k] for k in _COST_STATICS if k in statics})
+
+
 def key_from_numpy(key) -> np.ndarray:
     """A reference key's raw data (uint32 (2,)) -> the port's key."""
     k = prng.as_key(np.asarray(key))

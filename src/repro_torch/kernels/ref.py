@@ -13,12 +13,12 @@ import torch
 def region_aggregate_ref(grads, masks, memory):
     """Algorithm 1 lines 15–22 (see ``core.aggregation``).
 
-    grads, memory: (N, D) f32; masks: (N, D) bool.
-    Returns (global_grad (D,), new_memory (N, D))."""
+    grads, memory: (N, D) f32, or (B, N, D) for B seeds; masks: bool, the
+    same shape.  Returns (global_grad (D,) or (B, D), new_memory)."""
     m = masks.to(grads.dtype)
-    count = m.sum(dim=0)
-    fresh = (grads * m).sum(dim=0) / torch.clamp_min(count, 1.0)
-    stale = memory.sum(dim=0) / memory.shape[0]
+    count = m.sum(dim=-2)
+    fresh = (grads * m).sum(dim=-2) / torch.clamp_min(count, 1.0)
+    stale = memory.sum(dim=-2) / memory.shape[-2]
     g = torch.where(count > 0, fresh, stale)
     new_memory = torch.where(masks, grads, memory)
     return g, new_memory
@@ -28,8 +28,8 @@ def ranl_update_ref(params, hdiag, grads, masks, memory, *, mu: float,
                     lr: float):
     """Fused aggregate + diagonal projected-Newton step.
 
-    params, hdiag: (D,); grads/memory/masks: (N, D).
-    Returns (new_params (D,), new_memory)."""
+    params, hdiag: (D,) with grads/memory/masks (N, D), or (B, D) with
+    (B, N, D).  Returns (new_params, new_memory)."""
     g, new_memory = region_aggregate_ref(grads, masks, memory)
     h_mu = torch.clamp_min(hdiag, float(mu))
     new_params = params - float(lr) * g / h_mu

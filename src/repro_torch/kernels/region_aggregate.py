@@ -27,7 +27,10 @@ has two ways through a ``BLOCK_D`` slice of coordinates, fixed by
   walking the N rows in a register loop and writing row i of C′ as it
   goes; at large D the grid alone keeps HBM busy.
 
-Then it finishes ḡ (and x′) for the slice.  G, M and C are read once and
+Then it finishes ḡ (and x′) for the slice.  The batch engine's B seeds
+go in one launch: the grid is (D-blocks, B), axis 1 offsetting every
+pointer by its seed's stride, and ``_launch_config`` counts programs over
+both axes, so at B = 8 the tile is narrower and the programs as many.  G, M and C are read once and
 C′ written once: (13N + 4)·D bytes for region_aggregate and (13N + 12)·D
 for ranl_update.  The mask is read as one byte per entry (the bool tensor
 viewed as uint8) instead of the Pallas wrapper's f32 cast.  The grid
@@ -50,9 +53,18 @@ from .launches import LAUNCHES
 def _aggregate_kernel(g_ptr, m_ptr, c_ptr, out_c_ptr, out_ptr, x_ptr, h_ptr,
                       N, D, mu, lr, FUSED: tl.constexpr,
                       BLOCK_N: tl.constexpr, BLOCK_D: tl.constexpr):
-    """One BLOCK_D slice of coordinates: the N worker rows as one tile
-    (``BLOCK_N`` > 0) or in a loop (``BLOCK_N`` = 0), C′ written, then ḡ
-    (``FUSED`` off) or x′ (``FUSED`` on) stored."""
+    """One BLOCK_D slice of coordinates of one seed: the N worker rows as
+    one tile (``BLOCK_N`` > 0) or in a loop (``BLOCK_N`` = 0), C′
+    written, then ḡ (``FUSED`` off) or x′ (``FUSED`` on) stored.  Axis 1
+    of the grid is the seed: every pointer moves by its seed's stride."""
+    seed = tl.program_id(1).to(tl.int64)
+    g_ptr += seed * N * D
+    m_ptr += seed * N * D
+    c_ptr += seed * N * D
+    out_c_ptr += seed * N * D
+    out_ptr += seed * D
+    x_ptr += seed * D
+    h_ptr += seed * D
     offs = tl.program_id(0) * BLOCK_D + tl.arange(0, BLOCK_D)
     valid = offs < D
     if BLOCK_N > 0:
@@ -111,10 +123,11 @@ TILE_ELEMS = 4096           # largest tile: 32 f32 registers a thread at 4 warps
 MIN_PROGRAMS = 256          # about two for each of 132 SMs
 
 
-def _launch_config(N: int, D: int):
-    """(BLOCK_N, BLOCK_D, num_warps).  Below ``TILE_MAX_D`` (and N ≤ 32):
-    all rows as one tile, BLOCK_D the widest power of two from 16 up that
-    still gives ``MIN_PROGRAMS`` programs, within ``TILE_ELEMS`` elements a
+def _launch_config(N: int, D: int, B: int = 1):
+    """(BLOCK_N, BLOCK_D, num_warps) for B seeds of (N, D).  Below
+    ``TILE_MAX_D`` (and N ≤ 32): all rows as one tile, BLOCK_D the widest
+    power of two from 16 up that still gives ``MIN_PROGRAMS`` programs
+    over the D-blocks of all B seeds, within ``TILE_ELEMS`` elements a
     tile, one warp per 512 of them.  Else the row loop (BLOCK_N = 0) over
     1024-wide slices with 4 warps."""
     if D >= TILE_MAX_D or N > TILE_MAX_N:
@@ -122,23 +135,27 @@ def _launch_config(N: int, D: int):
     block_n = max(2, 1 << (N - 1).bit_length())
     block_d = 16
     while (block_d * 2 * block_n <= TILE_ELEMS
-           and -(-D // (block_d * 2)) >= MIN_PROGRAMS):
+           and -(-D // (block_d * 2)) * B >= MIN_PROGRAMS):
         block_d *= 2
     return block_n, block_d, max(1, min(4, block_n * block_d // 512))
 
 
 def _check(grads, masks, memory, vectors=()):
+    """-> (B, N, D) for (N, D) inputs with (D,) vectors (B = 1) or
+    (B, N, D) inputs with (B, D) vectors; raises on anything else."""
     if grads.device.type != "cuda":
         raise ValueError(f"the kernel takes CUDA tensors, got "
                          f"{grads.device}")
-    if grads.dim() != 2:
-        raise ValueError(f"grads must be (N, D), got {tuple(grads.shape)}")
-    N, D = grads.shape
+    if grads.dim() not in (2, 3):
+        raise ValueError(f"grads must be (N, D) or (B, N, D), got "
+                         f"{tuple(grads.shape)}")
+    lead = tuple(grads.shape[:-2])
+    N, D = grads.shape[-2:]
     for name, t, dtype, shape in (
-            [("grads", grads, torch.float32, (N, D)),
-             ("masks", masks, torch.bool, (N, D)),
-             ("memory", memory, torch.float32, (N, D))]
-            + [(n, v, torch.float32, (D,)) for n, v in vectors]):
+            [("grads", grads, torch.float32, lead + (N, D)),
+             ("masks", masks, torch.bool, lead + (N, D)),
+             ("memory", memory, torch.float32, lead + (N, D))]
+            + [(n, v, torch.float32, lead + (D,)) for n, v in vectors]):
         if t.device != grads.device:
             raise ValueError(f"{name} is on {t.device}, grads on "
                              f"{grads.device}")
@@ -149,23 +166,31 @@ def _check(grads, masks, memory, vectors=()):
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if N < 1 or D < 1:
-        raise ValueError(f"empty input (N={N}, D={D})")
-    return N, D
+    B = lead[0] if lead else 1
+    if B < 1 or N < 1 or D < 1:
+        raise ValueError(f"empty input (B={B}, N={N}, D={D})")
+    return B, N, D
+
+
+def _launch(shape, grads, masks, memory, out_c, out, x, h, mu, lr, fused):
+    B, N, D = shape
+    block_n, block, warps = _launch_config(N, D, B)
+    _kernel()[((D + block - 1) // block, B)](
+        grads, masks.view(torch.uint8), memory, out_c, out, x, h, N, D,
+        float(mu), float(lr), FUSED=fused, BLOCK_N=block_n, BLOCK_D=block,
+        num_warps=warps)
 
 
 def region_aggregate(grads, masks, memory):
-    """grads, memory: (N, D) f32 CUDA; masks: (N, D) bool.
-    Returns (global_grad (D,), new_memory (N, D)); launches on the
-    current stream without synchronising."""
-    N, D = _check(grads, masks, memory)
-    out_g = torch.empty((D,), dtype=torch.float32, device=grads.device)
+    """grads, memory: (N, D) or (B, N, D) f32 CUDA; masks: bool, the same
+    shape.  Returns (global_grad (D,) or (B, D), new_memory): one launch
+    for all B seeds, on the current stream, without synchronising."""
+    shape = _check(grads, masks, memory)
+    out_g = torch.empty(grads.shape[:-2] + grads.shape[-1:],
+                        dtype=torch.float32, device=grads.device)
     out_c = torch.empty_like(memory)
-    block_n, block, warps = _launch_config(N, D)
-    _kernel()[((D + block - 1) // block,)](
-        grads, masks.view(torch.uint8), memory, out_c, out_g, out_g, out_g,
-        N, D, 0.0, 0.0, FUSED=False, BLOCK_N=block_n, BLOCK_D=block,
-        num_warps=warps)
+    _launch(shape, grads, masks, memory, out_c, out_g, out_g, out_g, 0.0,
+            0.0, False)
     LAUNCHES["region_aggregate"] += 1
     return out_g, out_c
 
@@ -173,16 +198,13 @@ def region_aggregate(grads, masks, memory):
 def ranl_update(params, hdiag, grads, masks, memory, *, mu: float,
                 lr: float = 1.0):
     """Fused aggregation + diagonal projected-Newton step.
-    params, hdiag: (D,) f32 CUDA; grads/masks/memory: (N, D).
-    Returns (new_params, new_memory)."""
-    N, D = _check(grads, masks, memory,
-                  (("params", params), ("hdiag", hdiag)))
+    params, hdiag: (D,) f32 CUDA with grads/masks/memory (N, D), or (B, D)
+    with (B, N, D).  Returns (new_params, new_memory): one launch."""
+    shape = _check(grads, masks, memory,
+                   (("params", params), ("hdiag", hdiag)))
     out_x = torch.empty_like(params)
     out_c = torch.empty_like(memory)
-    block_n, block, warps = _launch_config(N, D)
-    _kernel()[((D + block - 1) // block,)](
-        grads, masks.view(torch.uint8), memory, out_c, out_x, params, hdiag,
-        N, D, float(mu), float(lr), FUSED=True, BLOCK_N=block_n,
-        BLOCK_D=block, num_warps=warps)
+    _launch(shape, grads, masks, memory, out_c, out_x, params, hdiag, mu, lr,
+            True)
     LAUNCHES["ranl_update"] += 1
     return out_x, out_c

@@ -135,7 +135,7 @@ def bits(key, shape, device) -> torch.Tensor:
             w1, w2 = k1_t[kid], k2_t[kid]
         b1, b2 = _threefry2x32(w1, w2, c >> 32, c & _M32)
         out[a:a + p.numel()] = b1 ^ b2
-    return out.reshape(*batch, *shape)
+    return out.reshape(tuple(batch) + shape)
 
 
 def _f32(v) -> float:

@@ -101,15 +101,37 @@ def test_run_refuses_a_problem_on_another_device():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(engine="batch"), dict(engine="sharded"), dict(engine="sharded2d"),
-    dict(compression="int8"), dict(quorum=0.75), dict(hessian_rank=2),
+    dict(engine="sharded"), dict(engine="sharded2d"),
     dict(hierarchy="pods=2,period=1"), dict(overlap=True),
-    dict(journal="run.jsonl"), dict(controller="resource:keep_prob=0.5")],
+    dict(journal="run.jsonl")],
     ids=str)
 def test_options_outside_the_slice_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         repro_torch.run(_small(), prng.PRNGKey(1), device="cpu",
                         num_rounds=1, num_regions=2, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(engine="batch"), dict(compression="int8"), dict(quorum=0.75),
+    dict(hessian_rank=2), dict(controller="resource:keep=0.5")], ids=str)
+def test_options_of_this_slice_run(kw):
+    """What raised NotImplementedError before the batch engine, the
+    compression, quorum and controller ports now runs."""
+    key = prng.PRNGKey(1)
+    if kw.get("engine") == "batch":
+        key = prng.split(key, 2)
+    res = repro_torch.run(_small(), key, device="cpu", num_rounds=1,
+                          num_regions=2, **kw)
+    assert torch.isfinite(res.xs).all()
+    assert res.coverage.shape[-1] == 1
+
+
+@pytest.mark.parametrize("spec", ["geo-distributed", "edge-cohort",
+                                  "diurnal-WAN"])
+def test_pod_topology_scenarios_raise_not_implemented(spec):
+    from repro_torch.hetero.scenarios import make_scenario
+    with pytest.raises(NotImplementedError, match="item 11"):
+        make_scenario(spec, prng.PRNGKey(0), 4, device="cpu")
 
 
 @pytest.mark.parametrize("kw,err", [

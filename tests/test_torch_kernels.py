@@ -154,6 +154,41 @@ def test_triton_kernels_match_plain_on_card(cuda, n, d, kind):
     assert LAUNCHES["ranl_update"] == before["ranl_update"] + 1
 
 
+def _batched_inputs(b, n, d, kind, seed=0):
+    """B seeds' inputs stacked: (b, n, d) and (b, d)."""
+    return [np.stack(arrs) for arrs in zip(*(
+        _inputs(n, d, kind, seed=seed + 101 * i) for i in range(b)))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", MASKS)
+@pytest.mark.parametrize("b,n,d", [(8, 32, 8192), (8, 32, 4096), (1, 32, 4096),
+                                   (3, 7, 513), (2, 32, (1 << 16) + 37),
+                                   (2, 5, (1 << 18) + 3)])
+def test_seed_batched_kernels_match_plain_on_card(cuda, b, n, d, kind):
+    """One launch for B seeds: C′ bit-equal, ḡ and x′ as the unbatched
+    kernels', and each seed's row as the kernel on that seed alone: C′
+    bit-equal, x′ within the kernel tolerance (B seeds may take a wider
+    tile, which sums the rows in another order).  A ragged D, B = 1 and
+    the row-loop path included."""
+    g, m, c, x, h = _t(*_batched_inputs(b, n, d, kind), device=cuda)
+    before = dict(LAUNCHES)
+    got = K.region_aggregate(g, m, c)
+    want = ref.region_aggregate_ref(g, m, c)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[1], want[1])
+    gotx = K.ranl_update(x, h, g, m, c, mu=MU, lr=LR)
+    wantx = ref.ranl_update_ref(x, h, g, m, c, mu=MU, lr=LR)
+    torch.testing.assert_close(gotx[0], wantx[0], rtol=1e-5, atol=1e-6)
+    assert torch.equal(gotx[1], wantx[1])
+    assert LAUNCHES["region_aggregate"] == before["region_aggregate"] + 1
+    assert LAUNCHES["ranl_update"] == before["ranl_update"] + 1
+    for i in range(b):
+        one = K.ranl_update(x[i], h[i], g[i], m[i], c[i], mu=MU, lr=LR)
+        torch.testing.assert_close(gotx[0][i], one[0], rtol=1e-5, atol=1e-6)
+        assert torch.equal(gotx[1][i], one[1])
+
+
 @pytest.mark.parametrize("n,d", [(32, 4096), (32, 8192)])
 def test_launch_config_spreads_the_main_shapes_over_the_card(n, d):
     """The main path's shapes take the tile body (every row at once) with
@@ -161,6 +196,50 @@ def test_launch_config_spreads_the_main_shapes_over_the_card(n, d):
     block_n, block_d, warps = K._launch_config(n, d)
     assert block_n >= n and -(-d // block_d) >= 128
     assert block_n * block_d <= K.TILE_ELEMS and 1 <= warps <= 4
+
+
+@pytest.mark.parametrize("b,n,d", [(8, 32, 8192), (8, 32, 4096), (2, 7, 513),
+                                   (64, 32, 4096)])
+def test_launch_config_counts_programs_over_the_seeds(b, n, d):
+    """The seed axis counts toward the programs: B seeds of a shape take a
+    tile at least as wide as one seed's, and still fill the card."""
+    bn, bd, warps = K._launch_config(n, d, b)
+    bn1, bd1, _ = K._launch_config(n, d)
+    assert bn == bn1 and bd >= bd1
+    assert -(-d // bd) * b >= min(K.MIN_PROGRAMS, -(-d // 16) * b)
+    assert bn * bd <= K.TILE_ELEMS and 1 <= warps <= 4
+
+
+@pytest.mark.parametrize("kind", MASKS)
+@pytest.mark.parametrize("b,n,d", [(1, 3, 129), (4, 7, 513), (2, 1, 1)])
+def test_plain_versions_broadcast_over_seeds(reference, b, n, d, kind):
+    """The plain versions on (B, N, D) equal the reference's oracles seed
+    by seed (C′ bit-equal)."""
+    jnp, jops, jref = reference
+    g, m, c, x, h = _batched_inputs(b, n, d, kind)
+    agg = ref.region_aggregate_ref(*_t(g, m, c))
+    upd = ref.ranl_update_ref(*_t(x, h, g, m, c), mu=MU, lr=LR)
+    for i in range(b):
+        want = jref.region_aggregate_ref(g[i], m[i], c[i])
+        np.testing.assert_allclose(agg[0][i].numpy(), np.asarray(want[0]),
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_array_equal(agg[1][i].numpy(),
+                                      np.asarray(want[1]))
+        want = jref.ranl_update_ref(x[i], h[i], g[i], m[i], c[i], mu=MU,
+                                    lr=LR)
+        np.testing.assert_allclose(upd[0][i].numpy(), np.asarray(want[0]),
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_array_equal(upd[1][i].numpy(),
+                                      np.asarray(want[1]))
+
+
+def test_seed_batched_wrappers_check_shapes_on_the_host():
+    """The batched form's shape rules are checked before any launch."""
+    g, m, c, x, h = _t(*_batched_inputs(2, 3, 40, "random"))
+    with pytest.raises(ValueError, match="CUDA"):
+        K.ranl_update(x, h, g, m, c, mu=MU, lr=LR)
+    got = ops.ranl_update(x, h, g, m, c, mu=MU, lr=LR)
+    assert got[0].shape == (2, 40) and got[1].shape == (2, 3, 40)
 
 
 def test_launch_config_keeps_the_row_loop_at_large_d():
@@ -180,6 +259,11 @@ def test_launch_config_tiles_cover_every_row(n, d):
 @pytest.mark.gpu
 def test_triton_wrappers_check_inputs_on_card(cuda):
     g, m, c, x, h = _t(*_inputs(3, 40, "random"), device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        K.ranl_update(x[None].expand(2, 40).contiguous(), h, g[None], m[None],
+                      c[None], mu=MU, lr=LR)
+    with pytest.raises(ValueError):
+        K.region_aggregate(g[None, None], m[None, None], c[None, None])
     with pytest.raises(TypeError):
         K.region_aggregate(g.double(), m, c)
     with pytest.raises(ValueError):
