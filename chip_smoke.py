@@ -73,8 +73,10 @@ the card and times both, then drives the port's paths at full width:
    ``pareto-stragglers``, diag with ``compression="topk:8"`` and the
    ``"resource"`` controller on ``churn-stragglers``, diag with the
    ``"staleness-bounded"`` controller on ``dropout``: finite, converging
-   (see ``phase_options``), and integer traces, comm_bytes and round_time
-   equal to a host run of the same problem and key; ms per round;
+   (see ``phase_options``), integer traces, comm_bytes and round_time
+   equal to a host run of the same problem and key, x¹ within
+   ``INIT_XS_TOL`` of it and x² … x^T within the CPU tests' tolerances;
+   ms per round;
 13. lowrank_init: ``hessian_rank=4`` on a quadratic cut to N=32, d=512
    (the rank-1 sweeps are a Python loop of (N−1)·rank·d column steps):
    init seconds, card against host.
@@ -136,6 +138,12 @@ LARGE_SHAPE = (32, 1 << 22)
 # batch row b against a scan run of seed b on the card: xs within this
 # times max |x| (the B-column oracle product rounds apart from one column)
 BATCH_XS_RTOL = 1e-4
+# x¹ of an options run, card against host, x max |x|: the init step
+# (eigh, projection and Cholesky of the d = 8192 Hessian, κ = 1e3, in
+# f32) is the same code in every run, options or none, and two linear-
+# algebra libraries round it apart by up to about κ·2⁻²³·8 ≈ 1e-3; the
+# rounds after it, where the options act, contract that gap.
+INIT_XS_TOL = 1e-3
 LOWRANK = dict(num_workers=32, dim=512, rank=4)   # lowrank_init's cut
 CONSISTENT_LAYERS = 2           # depth of serve_consistent's tight check
 CONSISTENT_TOL = (2e-3, 3e-3)   # its prefill and decode bounds
@@ -540,6 +548,7 @@ def phase_batch(torch, rt, report, launches, kind):
         if not bool((res.dist_sq[:, -1] <= 1e-6 * res.dist_sq[:, 0]).all()):
             raise AssertionError("batch dense: dist_sq did not fall by 1e-6")
     elif not bool((res.losses[:, -1] < res.losses[:, 0]).all()):
+        # below x0's, not x1's: as in the reference (phase_options)
         raise AssertionError("batch diag: loss did not fall below x0's")
     worst = 0.0
     for b in range(SEEDS):
@@ -563,9 +572,7 @@ def phase_batch(torch, rt, report, launches, kind):
     if solve:
         log(f"batch_dense: one round's Cholesky step alone: "
             f"{solve['solve_ms_batch']:.3f} ms for {SEEDS} seeds at once, "
-            f"{solve['solve_ms_single']:.3f} ms for one (torch."
-            f"cholesky_solve: {solve['solve_ms_cholesky_solve_batch']:.3f} "
-            f"and {solve['solve_ms_cholesky_solve_single']:.3f} ms)")
+            f"{solve['solve_ms_single']:.3f} ms for one")
     log(f"batch_{kind}: {SEEDS} seeds, init {init_s:.2f} s, {round_ms:.3f} "
         f"ms/round = {round_ms / SEEDS:.3f} ms per round and seed (one seed: "
         f"{report.get(kind, {}).get('round_ms')} ms/round); "
@@ -580,20 +587,14 @@ def solve_ms(torch, problem):
     """CUDA-event times of one round's dense step against the factor of
     the mean Hessian, median of 5: the port's ``cho_solve`` (two
     triangular solves) for SEEDS seeds at once (SEEDS factors, as the
-    batch engine holds) and for one, and ``torch.cholesky_solve`` of the
-    same, which computes the same two solves."""
+    batch engine holds) and for one."""
     from repro_torch.core.hessian import cho_factor, cho_solve
     L = cho_factor(problem.mean_hessian())
     LB = L.expand(SEEDS, -1, -1).contiguous()
     g = torch.randn(SEEDS, problem.dim, device="cuda")
     out = {}
-    for label, fn in (
-            ("batch", lambda: cho_solve(LB, g)),
-            ("single", lambda: cho_solve(L, g[0])),
-            ("cholesky_solve_batch",
-             lambda: torch.cholesky_solve(g[..., None], LB)),
-            ("cholesky_solve_single",
-             lambda: torch.cholesky_solve(g[0, :, None], L))):
+    for label, fn in (("batch", lambda: cho_solve(LB, g)),
+                      ("single", lambda: cho_solve(L, g[0]))):
         fn()
         out[f"solve_ms_{label}"] = statistics.median(
             event_ms(torch, fn) for _ in range(5))
@@ -603,35 +604,46 @@ def solve_ms(torch, problem):
 
 
 def option_runs():
-    """(label, problem kind, options, controller, scenario, converges) of
-    the options phase: compression, quorum and the closed-loop
-    controllers on the scan engine at the main paths' sizes.  The top-k
-    diag run does not converge, in the reference as in the port: each
-    worker sends 8 of 64 regions, error feedback releases the rest
-    rounds later, and the unit diagonal Newton step overshoots on that
-    delayed mass (the loss climbs from 0.591 at x¹ to about 0.79 at x^T;
-    ROADMAP Queue 3).  It is held to finite values and to the host run."""
+    """(label, problem kind, options, controller, scenario, converges,
+    xs tolerance) of the options phase: compression, quorum and the
+    closed-loop controllers on the scan engine at the main paths' sizes.
+    The top-k diag run does not converge, in the reference as in the
+    port: each worker sends 8 of 64 regions, error feedback releases the
+    rest rounds later, and the unit diagonal Newton step overshoots on
+    that delayed mass (the loss climbs from 0.591 at x¹ to about 0.79 at
+    x^T; ROADMAP Queue 3).  It is held to finite values and to the host
+    run.  The tolerances of x² … x^T, x max |x|, are those the CPU
+    tests hold the port to against the reference
+    (tests/test_torch_options.py): 2e-5, 5e-5 with quorum's late folds,
+    5e-2 (one quantization step) with int8, whose quantizer's inputs
+    differ in the last bit between two summation orders."""
     return (
-        ("dense_int8", "dense", dict(compression="int8"), None, None, True),
+        ("dense_int8", "dense", dict(compression="int8"), None, None, True,
+         5e-2),
         ("dense_quorum", "dense", dict(quorum=0.75, max_delay=2), None,
-         "pareto-stragglers", True),
+         "pareto-stragglers", True, 5e-5),
         ("diag_topk_resource", "diag", dict(compression="topk:8"),
-         "resource", "churn-stragglers", False),
+         "resource", "churn-stragglers", False, 2e-5),
         ("diag_staleness_bounded", "diag", dict(), "staleness-bounded",
-         "dropout", True))
+         "dropout", True, 2e-5))
 
 
 def phase_options(torch, rt, report, launches):
     """Each option run on the card, then the same problem, key and options
-    on the host: integer traces, comm_bytes and round_time equal.  The
-    scenario's cost model is drawn on the host (pareto rates included) and
-    moved, so card and host price the same cluster; quorum deadlines are
-    differences of those rates' f32 quotients, equal on both, so no
-    tolerance is needed.  A converging dense run's dist_sq falls from x¹
-    to x^T; a converging diag run's loss falls below x⁰'s (its first
+    on the host: integer traces, comm_bytes and round_time equal; x¹
+    within ``INIT_XS_TOL``, x² … x^T within the run's tolerance
+    (``option_runs``).  The scenario's cost
+    model is drawn on the host (pareto rates included) and moved, so card
+    and host price the same cluster; quorum deadlines are differences of
+    those rates' f32 quotients, equal on both, so no tolerance is needed.
+    A converging dense run's dist_sq falls from x¹ to x^T.  A converging
+    diag run's loss falls below x⁰'s but not below x¹'s: its first
     diagonal Newton step lands next to x*, and the pruned rounds settle a
-    little above it: ROADMAP Queue 3).  ``option_runs`` says which run
-    does not converge, and why."""
+    little above it, in the reference as in the port
+    (tests/test_torch_options.py::
+    test_diag_loss_settles_above_the_first_step_as_in_the_reference holds
+    both to the same rise at N = 32; ROADMAP Queue 3).  ``option_runs``
+    says which run does not converge, and why."""
     from repro_torch import prng
     from repro_torch.hetero.scenarios import make_scenario
     T = 30
@@ -640,7 +652,7 @@ def phase_options(torch, rt, report, launches):
         problem = (dense_problem if kind == "dense" else diag_problem)(
             torch, rt)
         host, N = on_host(problem), problem.num_workers
-        for label, pk, kw, ctrl, scen, converges in option_runs():
+        for label, pk, kw, ctrl, scen, converges, tol in option_runs():
             if pk != kind:
                 continue
             opts = dict(num_rounds=T, num_regions=64, curvature=kind,
@@ -671,13 +683,25 @@ def phase_options(torch, rt, report, launches):
                          **opts)
             host_s = time.time() - t0
             same_traces(torch, res, ref, f"{label} card vs host")
+            scale = ref.xs.abs().max().item()
+            gap = (res.xs.cpu() - ref.xs).abs().amax(dim=-1) / scale
+            init_err, err = gap[1].item(), gap[2:].max().item()
+            if not init_err <= INIT_XS_TOL:
+                raise AssertionError(f"{label} card vs host: x1 |err| "
+                                     f"{init_err} x max |x| > {INIT_XS_TOL}")
+            if not err <= tol:
+                raise AssertionError(f"{label} card vs host: xs[2:] max "
+                                     f"|err| {err} x max |x| > {tol}")
             round_ms = (total_s - init_s) / T * 1e3
             out[label] = {"init_s": init_s, "round_ms": round_ms,
                           "held_to_converge": converges,
                           "launches": counts, "host_run_s": host_s,
+                          "x1_vs_host_max_rel": init_err,
+                          "xs_vs_host_max_rel": err, "xs_tol": tol,
                           "dist_sq_1": float(res.dist_sq[1]),
                           "dist_sq_T": float(res.dist_sq[-1]),
                           "loss_0": float(res.losses[0]),
+                          "loss_1": float(res.losses[1]),
                           "loss_T": float(res.losses[-1]),
                           "tau_star": res.tau_star,
                           "comm_bytes_total": float(res.comm_bytes.sum()),
@@ -685,9 +709,12 @@ def phase_options(torch, rt, report, launches):
             log(f"options {label}: {round_ms:.3f} ms/round (init "
                 f"{init_s:.2f} s); dist_sq {out[label]['dist_sq_1']:.4e} "
                 f"(x1) -> {out[label]['dist_sq_T']:.4e}, loss "
-                f"{out[label]['loss_0']:.5f} -> {out[label]['loss_T']:.5f}; "
-                f"integer traces, comm_bytes and round_time equal the host "
-                f"run's ({host_s:.1f} s); launches {counts}")
+                f"{out[label]['loss_0']:.5f} -> {out[label]['loss_1']:.5f} "
+                f"(x1) -> {out[label]['loss_T']:.5f}; integer traces, "
+                f"comm_bytes and round_time equal the host run's "
+                f"({host_s:.1f} s); max |err| x max |x|: x1 {init_err:.3e} "
+                f"(tol {INIT_XS_TOL}), x2..xT {err:.3e} (tol {tol}); "
+                f"launches {counts}")
         del problem, host
         torch.cuda.empty_cache()
     report["options"] = out

@@ -93,14 +93,18 @@ def _resolve(engine, options, mesh, controller, overrides):
     return opts, controller
 
 
-def _check_device(problem, device):
+def _check_device(problem, device, cost):
     dev = resolve_device(device)
-    for t in problem.tensors():
+    held = [("problem", t) for t in problem.tensors()]
+    if cost is not None:
+        held += [("cost model", cost.compute_rate),
+                 ("cost model", cost.bandwidth)]
+    for what, t in held:
         if t.device.type != dev.type or (
                 dev.index is not None and t.device.index != dev.index):
             raise ValueError(
-                f"the problem's tensors are on {t.device}, the run asks "
-                f"for {dev}; build the problem on that device")
+                f"the {what}'s tensors are on {t.device}, the run asks "
+                f"for {dev}; build the {what} on that device")
 
 
 def run(problem, key, *, engine: str = "scan",
@@ -120,7 +124,7 @@ def run(problem, key, *, engine: str = "scan",
                                 overrides)
     if journal is not None:
         raise _not_yet("journal", "=")
-    _check_device(problem, device)
+    _check_device(problem, device, cost)
     key = prng.as_key(key)
     if engine == "batch":
         if key.ndim != 2 or key.shape[0] < 1:

@@ -100,8 +100,7 @@ def cho_solve(chol_l, g):
 
     ``torch.cholesky_solve`` computes the same two solves, bit for bit on
     the host, but on an H100 it takes B = 8 factors of d = 8192 in about
-    17× the time of these two batched calls (``chip_smoke.py``'s
-    batch_dense phase times both)."""
+    17× the time of these two batched calls (PERF.md §5)."""
     y = torch.linalg.solve_triangular(chol_l, g[..., None], upper=False)
     return torch.linalg.solve_triangular(chol_l.mT, y, upper=True)[..., 0]
 

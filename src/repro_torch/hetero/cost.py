@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import prng
+from ..device import resolve_device
 
 _F32 = torch.float32
 
@@ -71,16 +72,17 @@ def pareto_cost(key, num_workers: int, *, alpha: float = 1.2,
     """Heavy-tailed compute rates: rate_i = 1 / Pareto(alpha) sample, with
     u uniform on [1e-4, 1).
 
-    Computed on the host and then moved, so the card and the host get the
-    same rates bit for bit; the power runs in float64 on the f32 base and
-    exponent and rounds once, within an ulp of the reference's f32 pow."""
+    Computed on the host and then moved to ``device`` (None = the card),
+    so the card and the host get the same rates bit for bit; the power
+    runs in float64 on the f32 base and exponent and rounds once, within
+    an ulp of the reference's f32 pow."""
     u = prng.uniform(key, (num_workers,), "cpu", minval=1e-4, maxval=1.0)
     base = (1.0 - u).to(torch.float64)
     slowdown = torch.pow(base, float(np.float32(-1.0 / alpha))).to(_F32)
     cost = CostModel(compute_rate=1.0 / slowdown,
                      bandwidth=torch.full((num_workers,), bandwidth,
                                           dtype=_F32))
-    return cost if device is None else on_device(cost, device)
+    return on_device(cost, resolve_device(device))
 
 
 def with_availability(cost: CostModel, *, dropout_prob: float = 0.0,

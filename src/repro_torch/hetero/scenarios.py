@@ -89,7 +89,7 @@ def _gamma_one(key, alpha: float) -> torch.Tensor:
     return d * V * boost
 
 
-def gamma(key, alpha: float, num: int) -> torch.Tensor:
+def _gamma(key, alpha: float, num: int) -> torch.Tensor:
     """(num,) f32 Gamma(alpha) draws on the host, draw i from
     ``split(key, num)[i]`` as the reference's."""
     keys = prng.split(key, num)
@@ -100,7 +100,7 @@ def dirichlet_weights(key, num_workers: int, alpha: float,
                       device=None) -> torch.Tensor:
     """(N,) per-worker data-share weights, mean 1 (N · Dirichlet(alpha)):
     small ``alpha`` concentrates the data on few workers."""
-    g = gamma(key, alpha, num_workers)
+    g = _gamma(key, alpha, num_workers)
     w = num_workers * g / torch.clamp_min(g.sum(), 1e-30)
     return w.to(resolve_device(device))
 
@@ -109,7 +109,7 @@ def _base_cost(key, num_workers: int, p: dict) -> CostModel:
     bw = float(p.get("bw", float("inf")))
     if "alpha" in p:
         return pareto_cost(key, num_workers, alpha=float(p["alpha"]),
-                           bandwidth=bw)
+                           bandwidth=bw, device="cpu")
     return uniform_cost(num_workers, "cpu", bandwidth=bw)
 
 
@@ -121,7 +121,7 @@ def _uniform(key, n, p):
 def _pareto(key, n, p):
     return Scenario("pareto-stragglers", pareto_cost(
         key, n, alpha=float(p.get("alpha", 1.2)),
-        bandwidth=float(p.get("bw", float("inf")))))
+        bandwidth=float(p.get("bw", float("inf"))), device="cpu"))
 
 
 def _dropout(key, n, p):

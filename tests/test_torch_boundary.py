@@ -18,6 +18,11 @@ torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
 from repro_torch import prng  # noqa: E402
+from repro_torch.hetero import (  # noqa: E402
+    dirichlet_weights,
+    make_scenario,
+    pareto_cost,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
@@ -94,10 +99,29 @@ def test_entry_points_default_to_the_card():
         repro_torch.run(_small(), prng.PRNGKey(1), num_rounds=1)
 
 
+@pytest.mark.parametrize("entry", [
+    lambda: pareto_cost(prng.PRNGKey(0), 4),
+    lambda: make_scenario("pareto-stragglers", prng.PRNGKey(0), 4),
+    lambda: dirichlet_weights(prng.PRNGKey(0), 4, 0.3)],
+    ids=["pareto_cost", "make_scenario", "dirichlet_weights"])
+def test_cost_and_scenario_entry_points_default_to_the_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+
+
 def test_run_refuses_a_problem_on_another_device():
     with pytest.raises(ValueError, match="problem"):
         repro_torch.run(_small(), prng.PRNGKey(1), device="cuda",
                         num_rounds=1)
+
+
+def test_run_refuses_a_cost_model_on_another_device():
+    cost = pareto_cost(prng.PRNGKey(0), 4, device="meta")
+    with pytest.raises(ValueError, match="cost model"):
+        repro_torch.run(_small(), prng.PRNGKey(1), device="cpu",
+                        num_rounds=1, num_regions=2, cost=cost)
 
 
 @pytest.mark.parametrize("kw", [
