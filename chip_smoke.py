@@ -9,8 +9,8 @@ at those seeds, with the kernels and with their plain twins, one JSON
 line each, and exits: the readings ``FULL_DEPTH_RATIO`` is set from.
 The first:
 Builds the hand-written kernels from the sources in the checkout (the
-Triton K1/K2 under ``src/repro_torch/kernels/``, the CUDA C++ K3/K4 under
-``src/repro_torch/csrc/``), holds each against its plain PyTorch version on
+Triton K1/K2 under ``src/repro_torch/kernels/``, the CUDA C++ K3/K4 and
+chol_update under ``src/repro_torch/csrc/``), holds each against its plain PyTorch version on
 the card and times both, then drives the port's paths at full width:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -21,7 +21,8 @@ the card and times both, then drives the port's paths at full width:
 3. kernels (K1/K2) against their plain versions at (N, D) = (32, 2²²+37),
    (7, 513), (1, 1) and the main path's shapes, with random, all-false
    and all-true masks (C′ bit-equal; ḡ and x′ within rtol 1e-5, atol
-   1e-6 — the N-sum runs in another order); times at the main path's
+   1e-6 — the N-sum runs in another order), and at the hierarchy
+   phase's pod rows (``POD_ROW_SHAPES``); times at the main path's
    shapes and at (32, 2²²);
 4. kernels (K3/K4) against their plain twins: flash attention at
    phi4-mini's prefill (4, 1024, 24, 8, 128) in bf16, at a ragged S, at
@@ -77,9 +78,27 @@ the card and times both, then drives the port's paths at full width:
    equal to a host run of the same problem and key, x¹ within
    ``INIT_XS_TOL`` of it and x² … x^T within the CPU tests' tolerances;
    ms per round;
-13. lowrank_init: ``hessian_rank=4`` on a quadratic cut to N=32, d=512
-   (the rank-1 sweeps are a Python loop of (N−1)·rank·d column steps):
-   init seconds, card against host.
+13. hierarchy: pod-of-pods rounds at the main paths' sizes, dense
+   ``pods=2,period=5`` on ``geo-distributed:pods=2`` (K1 at (2, 16,
+   8192)) and diag ``pods=4,period=3,gamma=0.5,compression=int8`` on
+   ``edge-cohort:pods=4`` (K2 at (4, 8, 4096)): one launch a round (30),
+   integer traces, pod_bytes and round_time equal to a host run of the
+   same problem and key, x¹ within ``INIT_XS_TOL`` and x² … x^T of
+   xs_pods within the CPU tests' tolerances; ms per round beside the
+   flat run of the same problem and cost; then ``engine="batch"`` over 8
+   seeds of the diag run, one K2 launch a round at (32, 8, 4096), each
+   row equal to the scan run of its key;
+14. lowrank_init: the chol_update kernel against the plain loop on the
+   card (one worker's rank-4 fold at d = 8192, the whole factor at
+   d = 512, within ``CHOL_RTOL`` x max |L|) and their times; the init of
+   ``hessian_rank=4`` on the dense main-path problem (N = 32, d = 8192),
+   31 launches, its seconds split between eigh and the kernel; and
+   ``hessian_rank=4`` at N = 32, d = 512, card against host;
+15. train_grad: gradients of a scalar loss through K3 at phi4-mini's
+   prefill (4, 1024, 24, 8, 128) in bf16 and K4 at rwkv6's (4, 1024, 40,
+   64) in f32 and in bf16, the kernel forward and the plain twin's
+   backward, against the twins' own gradients within the forward
+   tolerances (K4 in bf16: one bf16 step, ``BF16_STEP``).
 
 K1 and K2 are also held against their plain versions at the batch
 engine's (8, 32, 8192) and (8, 32, 4096), a ragged (3, 7, 513) and B = 1,
@@ -117,24 +136,33 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM published HBM3 rate
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 L2_BYTES = 50 << 20              # H100 L2
 TIMED_CALLS = 20
-KERNELS = ("region_aggregate", "ranl_update", "flash_attention", "rwkv_wkv")
+KERNELS = ("region_aggregate", "ranl_update", "flash_attention", "rwkv_wkv",
+           "chol_update")
 ZERO = {name: 0 for name in KERNELS}
 SOURCES = {"region_aggregate": "src/repro_torch/kernels/region_aggregate.py",
            "ranl_update": "src/repro_torch/kernels/region_aggregate.py",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-           "rwkv_wkv": "src/repro_torch/csrc/rwkv_wkv.cu"}
+           "rwkv_wkv": "src/repro_torch/csrc/rwkv_wkv.cu",
+           "chol_update": "src/repro_torch/csrc/chol_update.cu"}
 ROUTES = {"region_aggregate": "triton", "ranl_update": "triton",
-          "flash_attention": "cuda", "rwkv_wkv": "cuda"}
+          "flash_attention": "cuda", "rwkv_wkv": "cuda",
+          "chol_update": "cuda"}
+# chol_update ports no Pallas kernel: it replaces the reference's rank-1
+# sweep, a compiled lax.scan
 REPLACES = {"region_aggregate": "src/repro/kernels/region_aggregate.py:75",
             "ranl_update": "src/repro/kernels/region_aggregate.py:138",
             "flash_attention": "src/repro/kernels/flash_attention.py:77",
-            "rwkv_wkv": "src/repro/kernels/rwkv_wkv.py:57"}
+            "rwkv_wkv": "src/repro/kernels/rwkv_wkv.py:57",
+            "chol_update": "src/repro/core/compression.py:303"}
 # main-path shapes (N, D) each kernel sees: dense rounds (K1), diag (K2)
 MAIN_SHAPE = {"region_aggregate": (32, 8192), "ranl_update": (32, 4096)}
 SEEDS = 8                       # the batch engine's seeds (batch_* phases)
 # the seed-batched shapes (B, N, D) of the batch engine's rounds
 BATCH_SHAPE = {name: (SEEDS,) + shape for name, shape in MAIN_SHAPE.items()}
 LARGE_SHAPE = (32, 1 << 22)
+# the pod rows (B·P, N/P, D) the hierarchy phase's runs give K1/K2: dense
+# pods=2, diag pods=4, and the diag run over SEEDS seeds
+POD_ROW_SHAPES = ((2, 16, 8192), (4, 8, 4096), (SEEDS * 4, 8, 4096))
 # batch row b against a scan run of seed b on the card: xs within this
 # times max |x| (the B-column oracle product rounds apart from one column)
 BATCH_XS_RTOL = 1e-4
@@ -144,7 +172,22 @@ BATCH_XS_RTOL = 1e-4
 # algebra libraries round it apart by up to about κ·2⁻²³·8 ≈ 1e-3; the
 # rounds after it, where the options act, contract that gap.
 INIT_XS_TOL = 1e-3
-LOWRANK = dict(num_workers=32, dim=512, rank=4)   # lowrank_init's cut
+LOWRANK = dict(num_workers=32, dim=512, rank=4)   # lowrank_init's card-vs-host cut
+# chol_update against the plain loop on the card, x max |L|: the same IEEE
+# operations in the same order per element; what the two round apart (if
+# anything) grows along the chain of d columns
+CHOL_RTOL = 1e-5
+# a bf16 rounding step (8 significant bits): train_grad's tolerance on
+# K4's bf16 gradients, x (max |grad| + |grad|), which holds two values
+# one step apart
+BF16_STEP = 2.0 ** -8
+# the hierarchy phase's runs: (label, problem kind, hierarchy, scenario,
+# x² … x^T tolerance x max |x| against the host run: the CPU tests', 2e-5
+# for synchronous uncompressed pods, 5e-2 under the int8 exchange)
+HIER_RUNS = (("dense", "dense", "pods=2,period=5", "geo-distributed:pods=2",
+              2e-5),
+             ("diag", "diag", "pods=4,period=3,gamma=0.5,compression=int8",
+              "edge-cohort:pods=4", 5e-2))
 CONSISTENT_LAYERS = 2           # depth of serve_consistent's tight check
 CONSISTENT_TOL = (2e-3, 3e-3)   # its prefill and decode bounds
 # serve_consistent at full depth: the kernels' gap to the full forward at
@@ -252,7 +295,7 @@ def phase_kernels(torch, report):
         worst = 0.0
         for shape in ((32, (1 << 22) + 37), (7, 513), (1, 1),
                       MAIN_SHAPE[name], BATCH_SHAPE[name], (3, 7, 513),
-                      (1,) + MAIN_SHAPE[name]):
+                      (1,) + MAIN_SHAPE[name]) + POD_ROW_SHAPES:
             *b, n, d = shape
             for mk in ("random", "all_false", "all_true"):
                 args = make_inputs(torch, n, d, mk, gen, *b)
@@ -268,7 +311,8 @@ def phase_kernels(torch, report):
                 worst = max(worst, err)
         report[name] = {"max_abs_err": worst}
         log(f"{name}: matches its plain version (C' bit-equal, "
-            f"max |err| {worst:.3e}), seed-batched shapes included")
+            f"max |err| {worst:.3e}), seed-batched and pod-row shapes "
+            f"included")
 
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
     for name in ("region_aggregate", "ranl_update"):
@@ -720,24 +764,337 @@ def phase_options(torch, rt, report, launches):
     report["options"] = out
 
 
-def phase_lowrank(torch, rt, report):
-    """hessian_rank on the scan engine at a cut size (LOWRANK): the
-    column sweep of each rank-1 update is a Python loop, (N−1)·rank
-    sweeps of d columns.  Card against host: integer traces equal, xs
-    within 1e-4 x max |x| (two eigh and Cholesky implementations)."""
+def phase_hierarchy(torch, rt, report, launches):
+    """Hierarchical pod-of-pods rounds at the main paths' sizes
+    (``HIER_RUNS``): one K1 (dense) or K2 (diag) launch a round for all
+    pods, as (P, N/P, d) rows; integer traces, pod_bytes and round_time
+    equal to a host run of the same problem, key and scenario, x¹
+    within ``INIT_XS_TOL`` and x² … x^T of xs_pods within the run's
+    tolerance; ms per round beside the flat run of the same problem and
+    cost.  Then engine="batch" over SEEDS keys of the diag run: one K2
+    launch a round at (SEEDS·P, N/P, d), each row equal to the scan run
+    of its key."""
     from repro_torch import prng
+    from repro_torch.hetero.scenarios import make_scenario
+    T = 30
+    pol = rt.PolicyConfig(keep_prob=0.5, tau_star=1)
+    out = {}
+    for label, kind, spec, scen, tol in HIER_RUNS:
+        problem = (dense_problem if kind == "dense" else diag_problem)(
+            torch, rt)
+        N = problem.num_workers
+        name = "region_aggregate" if kind == "dense" else "ranl_update"
+        card_cost = make_scenario(scen, prng.PRNGKey(7), N,
+                                  device="cuda").cost
+        opts = dict(num_rounds=T, num_regions=64, curvature=kind,
+                    policy=pol, cost=card_cost)
+        # each timed run is the second of two (the first compiles the
+        # kernels for its shapes), less a warm zero-round run (the init)
+        flat_init = init_seconds(torch, lambda: rt.run(
+            problem, prng.PRNGKey(1), **{**opts, "num_rounds": 0}))
+        rt.run(problem, prng.PRNGKey(1), **opts)
+        flat, flat_s = sync_time(torch, lambda: rt.run(
+            problem, prng.PRNGKey(1), **opts))
+        init_s = init_seconds(torch, lambda: rt.run(
+            problem, prng.PRNGKey(1), hierarchy=spec,
+            **{**opts, "num_rounds": 0}))
+        rt.run(problem, prng.PRNGKey(1), hierarchy=spec, **opts)
+        res, total_s, counts = main_path_run(
+            torch, rt, problem, prng.PRNGKey(1), launches, hierarchy=spec,
+            **opts)
+        check_finite(torch, res)
+        pods = int(spec.split(",")[0].split("=")[1])
+        if counts != {**ZERO, name: T}:
+            raise AssertionError(f"hierarchy {label} launches {counts}")
+        if tuple(res.xs_pods.shape) != (T + 2, pods, problem.dim):
+            raise AssertionError(f"hierarchy {label}: xs_pods shape "
+                                 f"{tuple(res.xs_pods.shape)}")
+        if kind == "dense" and not float(res.dist_sq[-1]) < float(
+                res.dist_sq[1]):
+            raise AssertionError(f"hierarchy {label}: dist_sq did not fall "
+                                 f"from x1 to x_T")
+        if kind == "diag" and not float(res.losses[-1]) < float(
+                res.losses[0]):
+            raise AssertionError(f"hierarchy {label}: loss did not fall "
+                                 f"below x0's")
+        host_cost = make_scenario(scen, prng.PRNGKey(7), N,
+                                  device="cpu").cost
+        host = on_host(problem)
+        t0 = time.time()
+        ref = rt.run(host, prng.PRNGKey(1), device="cpu", hierarchy=spec,
+                     **{**opts, "cost": host_cost})
+        host_s = time.time() - t0
+        same_traces(torch, res, ref, f"hierarchy {label} card vs host")
+        if not torch.equal(res.pod_bytes.cpu(), ref.pod_bytes):
+            raise AssertionError(f"hierarchy {label}: pod_bytes differ")
+        scale = ref.xs_pods.abs().max().item()
+        gap = (res.xs_pods.cpu() - ref.xs_pods).abs().amax(dim=(-2, -1)) \
+            / scale
+        init_err, err = gap[1].item(), gap[2:].max().item()
+        if not init_err <= INIT_XS_TOL:
+            raise AssertionError(f"hierarchy {label} card vs host: x1 "
+                                 f"|err| {init_err} x max |x|")
+        if not err <= tol:
+            raise AssertionError(f"hierarchy {label} card vs host: xs_pods"
+                                 f"[2:] max |err| {err} x max |x| > {tol}")
+        pod_rows(pods, N // pods, problem.dim)
+        round_ms = (total_s - init_s) / T * 1e3
+        flat_ms = (flat_s - flat_init) / T * 1e3
+        out[label] = {
+            "hierarchy": spec, "scenario": scen, "round_ms": round_ms,
+            "flat_round_ms": flat_ms, "init_s": init_s, "launches": counts,
+            "kernel_rows": [pods, N // pods, problem.dim],
+            "host_run_s": host_s, "x1_vs_host_max_rel": init_err,
+            "xs_pods_vs_host_max_rel": err, "xs_tol": tol,
+            "pod_bytes_total": float(res.pod_bytes.sum()),
+            "flat_pod_bytes_total": float(flat.pod_bytes.sum()),
+            "round_time_total": float(res.round_time.sum()),
+            "flat_round_time_total": float(flat.round_time.sum()),
+            "dist_sq_1": float(res.dist_sq[1]),
+            "dist_sq_T": float(res.dist_sq[-1]),
+            "loss_0": float(res.losses[0]), "loss_T": float(res.losses[-1])}
+        log(f"hierarchy {label} ({spec} on {scen}): {round_ms:.3f} ms/round "
+            f"against {flat_ms:.3f} flat; {name} at ({pods}, {N // pods}, "
+            f"{problem.dim}) once a round, launches {counts}; simulated "
+            f"time {out[label]['round_time_total']:.1f} against "
+            f"{out[label]['flat_round_time_total']:.1f} flat, pod bytes "
+            f"{out[label]['pod_bytes_total']:.0f} against "
+            f"{out[label]['flat_pod_bytes_total']:.0f}; traces equal the "
+            f"host run's ({host_s:.1f} s); max |err| x max |x|: x1 "
+            f"{init_err:.3e}, x2..xT {err:.3e} (tol {tol})")
+        if kind == "diag":
+            out["batch_diag"] = hierarchy_batch(torch, rt, problem, spec,
+                                                opts, launches, tol, report)
+        del problem, host, res, ref, flat
+        torch.cuda.empty_cache()
+    report["hierarchy"] = out
+
+
+def pod_rows(*shape):
+    """A hierarchy run's kernel rows must be among the shapes the kernels
+    phase holds K1/K2 to their plain versions at."""
+    if shape not in POD_ROW_SHAPES:
+        raise AssertionError(f"kernel rows {shape} are not among "
+                             f"POD_ROW_SHAPES {POD_ROW_SHAPES}")
+
+
+def hierarchy_batch(torch, rt, problem, spec, opts, launches, tol, report):
+    """engine="batch" over SEEDS keys of one hierarchical run: one kernel
+    launch a round at (SEEDS·P, N/P, d); each row's traces equal the
+    scan run of its key on the card, its xs_pods within ``tol`` x max
+    |x| (the seed-batched kernel sums the rows in another order, and
+    the int8 exchange may round a value one step apart)."""
+    from repro_torch import prng
+    T = opts["num_rounds"]
+    keys = prng.split(prng.PRNGKey(1), SEEDS)
+    init_s = init_seconds(torch, lambda: rt.run(
+        problem, keys, engine="batch", hierarchy=spec,
+        **{**opts, "num_rounds": 0}))
+    rt.run(problem, keys, engine="batch", hierarchy=spec, **opts)
+    res, total_s, counts = main_path_run(torch, rt, problem, keys, launches,
+                                         engine="batch", hierarchy=spec,
+                                         **opts)
+    check_finite(torch, res)
+    if counts != {**ZERO, "ranl_update": T}:
+        raise AssertionError(f"hierarchy batch launches {counts}")
+    worst = 0.0
+    for b in range(SEEDS):
+        one = rt.run(problem, keys[b], hierarchy=spec, **opts)
+        same_traces(torch, res, one, f"hierarchy batch seed {b} vs scan", b)
+        if not torch.equal(res.pod_bytes[b], one.pod_bytes):
+            raise AssertionError(f"hierarchy batch seed {b}: pod_bytes")
+        scale = one.xs_pods.abs().max().item()
+        err = (res.xs_pods[b] - one.xs_pods).abs().max().item() / scale
+        if not err <= tol:
+            raise AssertionError(f"hierarchy batch seed {b} vs scan: "
+                                 f"xs_pods max |err| {err} x max |x|")
+        worst = max(worst, err)
+    round_ms = (total_s - init_s) / T * 1e3
+    pods = res.xs_pods.shape[-2]
+    pod_rows(SEEDS * pods, problem.num_workers // pods, problem.dim)
+    row = {"seeds": SEEDS, "round_ms": round_ms,
+           "round_ms_per_seed": round_ms / SEEDS, "init_s": init_s,
+           "launches": counts, "xs_pods_vs_scan_max_rel": worst,
+           "kernel_rows": [SEEDS * pods, problem.num_workers // pods,
+                           problem.dim],
+           "flat_batch_diag_round_ms": report.get("batch_diag",
+                                                  {}).get("round_ms")}
+    log(f"hierarchy batch_diag: {SEEDS} seeds, {round_ms:.3f} ms/round = "
+        f"{round_ms / SEEDS:.3f} per seed (flat batch_diag "
+        f"{row['flat_batch_diag_round_ms']}); ranl_update at "
+        f"{tuple(row['kernel_rows'])} once a round, launches {counts}; "
+        f"rows equal their scan runs, xs_pods max |err| {worst:.3e}")
+    return row
+
+
+@contextlib.contextmanager
+def plain_chol():
+    """The low-rank init's updates through the plain loop on the card
+    (the dispatch's function swapped, and put back after)."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.chol_update
+    ops.chol_update = ref.chol_update_ref
+    try:
+        yield
+    finally:
+        ops.chol_update = saved
+
+
+def chol_bound(n, r):
+    """The update's least time: the lower triangle read and written once,
+    V and alpha read; about 6 f32 operations an element and vector."""
+    tri = n * (n + 1) // 2
+    return bound_row(4 * (2 * tri + r * n + r), 6 * r * tri,
+                     PEAK_FLOPS["float32"])
+
+
+def lowrank_init_split(torch, rt, problem, launches, loop=False):
+    """The init of hessian_rank=4 on ``problem`` (a warm run, then a
+    counted one), its seconds split between the N − 1 eigh, the N − 1
+    updates (the kernel, or the plain loop when ``loop``) and the rest."""
+    from repro_torch import prng
+    from repro_torch.core import hessian
+    from repro_torch.kernels import ops
+    split = {"eigh_s": 0.0, "chol_update_s": 0.0}
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            split[key] += time.time() - t0
+            return out
+        return call
+    opts = dict(num_regions=64, hessian_rank=LOWRANK["rank"], num_rounds=0)
+    with plain_chol() if loop else contextlib.nullcontext():
+        if not loop:                    # the loop has nothing to compile
+            rt.run(problem, prng.PRNGKey(1), **opts)
+        saved = hessian.sym_eigh, ops.chol_update
+        hessian.sym_eigh = timed(hessian.sym_eigh, "eigh_s")
+        ops.chol_update = timed(ops.chol_update, "chol_update_s")
+        try:
+            init, init_s, counts = counted(torch, launches, lambda: rt.run(
+                problem, prng.PRNGKey(1), **opts))
+        finally:
+            hessian.sym_eigh, ops.chol_update = saved
+    return init, {"init_s": init_s, **split,
+                  "rest_s": init_s - sum(split.values()), "launches": counts}
+
+
+def loop_init(torch, rt):
+    """``--loop-init``: the init of hessian_rank=4 on the dense main-path
+    problem (N = 32, d = 8192) through the plain loop on the card, timed
+    once and split as phase_lowrank splits the kernel's, one JSON line."""
+    problem = dense_problem(torch, rt)
+    init, row = lowrank_init_split(torch, rt, problem, dict(ZERO), loop=True)
+    check_finite(torch, init)
+    if row["launches"] != ZERO:
+        raise AssertionError(f"loop init launched {row['launches']}")
+    log(json.dumps({"loop_init_d8192": row}))
+
+
+def phase_lowrank(torch, rt, report, launches):
+    """The low-rank init (``hessian_rank``) and its kernel, chol_update.
+
+    1. The kernel against the plain loop on the card: one worker's rank-4
+       fold at the main path's d = 8192 (L the Cholesky factor of a worker
+       Hessian of the dense problem), and the whole factor at d = 512;
+       within ``CHOL_RTOL`` x max |L|.  Times: the kernel (a CUDA graph of
+       calls), the loop (one call), a refactorization from scratch.
+    2. hessian_rank=4 on the scan engine at d = 512 (``LOWRANK``), card
+       against host: integer traces equal, xs within 1e-4 x max |x|; a
+       counted run, chol_update once per worker (N − 1 launches).
+    3. The init of hessian_rank=4 on the dense main-path problem (N = 32,
+       d = 8192), counted: N − 1 launches, the seconds split between the
+       N − 1 eigh, the N − 1 updates and the rest."""
+    from repro_torch import prng
+    from repro_torch.core import compression
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import chol_update as CU
+    from repro_torch.kernels import ref
+    r = LOWRANK["rank"]
+    problem = dense_problem(torch, rt)
+    d = problem.dim
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    L = torch.linalg.cholesky(problem.A[0]).mT.contiguous().mT
+    V = torch.randn(r, d, device="cuda", generator=gen) / d ** 0.5
+    alpha = torch.rand(r, device="cuda", generator=gen) * 10.0
+    before = LAUNCHES["chol_update"]
+    got = CU.chol_update(L, V, alpha)
+    per_call = LAUNCHES["chol_update"] - before
+    want, plain_s = sync_time(torch, lambda: ref.chol_update_ref(L, V,
+                                                                 alpha))
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if not err <= CHOL_RTOL * scale:
+        raise AssertionError(f"chol_update d={d}: max |err| {err} > "
+                             f"{CHOL_RTOL} x {scale}")
+    row = {"max_abs_err": err, "max_rel_err": err / scale,
+           "bit_equal_d8192": bool(torch.equal(got, want)),
+           "shape": [d, r], "ms": device_ms(torch, CU.chol_update,
+                                            [(L, V, alpha)]),
+           "plain_ms": plain_s * 1e3, "library_ms": None,
+           "launches_per_call": per_call, **chol_bound(d, r)}
+    A = L @ L.mT + (V.mT * alpha) @ V
+    torch.linalg.cholesky_ex(A)
+    row["refactor_ms"] = statistics.median(
+        event_ms(torch, lambda: torch.linalg.cholesky_ex(A)) for _ in range(3))
+    row["chain_us_per_column"] = row["ms"] * 1e3 / d
+    del got, want, A
+    log(f"chol_update at d={d}, rank {r}: {row['ms']:.4f} ms on the card "
+        f"({row['chain_us_per_column']:.3f} us a column), plain loop "
+        f"{row['plain_ms']:.1f} ms, cholesky of the updated matrix "
+        f"{row['refactor_ms']:.3f} ms; bound {row['bound_ms']:.5f} ms by "
+        f"{row['bound_by']}; max |err| {err:.3e} x max |L| {scale:.3e} "
+        f"(bit-equal: {row['bit_equal_d8192']})")
+
+    # 3. the main path's init at d = 8192, its time split
+    n = problem.num_workers
+    init, init_row = lowrank_init_split(torch, rt, problem, launches)
+    if init_row["launches"] != {**ZERO, "chol_update": n - 1}:
+        raise AssertionError(f"lowrank init d={d} launches "
+                             f"{init_row['launches']}")
+    check_finite(torch, init)
+    init_row["loop_fold_s"] = plain_s
+    log(f"lowrank_init N={n} d={d} rank {r}: init {init_row['init_s']:.2f} "
+        f"s = {init_row['eigh_s']:.2f} s in {n - 1} eigh + "
+        f"{init_row['chol_update_s']:.3f} s in {n - 1} chol_update calls + "
+        f"{init_row['rest_s']:.2f} s else (one fold through the plain loop "
+        f"takes {plain_s:.2f} s; `chip_smoke.py --loop-init` times the "
+        f"whole init through the loop)")
+    del problem, L, V, init
+    torch.cuda.empty_cache()
+
+    # 2. and the d = 512 factor: kernel against loop, card against host
     n, d, r = LOWRANK["num_workers"], LOWRANK["dim"], LOWRANK["rank"]
-    problem = rt.make_quadratic(prng.PRNGKey(5), num_workers=n, dim=d,
-                                kappa=100.0, coupling=0.0, num_regions=16,
-                                grad_noise=0.1, device="cuda")
-    opts = dict(num_regions=16, hessian_rank=r)
+    small = rt.make_quadratic(prng.PRNGKey(5), num_workers=n, dim=d,
+                              kappa=100.0, coupling=0.0, num_regions=16,
+                              grad_noise=0.1, device="cuda")
+    x0 = torch.zeros(d, device="cuda")
+    hkeys = prng.split(prng.fold_in(prng.split(prng.PRNGKey(6))[0], 0), n)
+    fac = compression.lowrank_hmu_factor(small, x0, hkeys, small.mu, rank=r)
+    with plain_chol():
+        fac_plain, loop_s = sync_time(torch, lambda: compression
+                                      .lowrank_hmu_factor(small, x0, hkeys,
+                                                          small.mu, rank=r))
+    fscale = fac_plain.abs().max().item()
+    ferr = (fac - fac_plain).abs().max().item()
+    if not ferr <= CHOL_RTOL * fscale:
+        raise AssertionError(f"lowrank factor d={d}: kernel vs loop max "
+                             f"|err| {ferr} > {CHOL_RTOL} x {fscale}")
+    row["max_abs_err"] = max(row["max_abs_err"], ferr)
+    kw = dict(num_regions=16, hessian_rank=r)
     init_s = sync_time(torch, lambda: rt.run(
-        problem, prng.PRNGKey(6), num_rounds=0, **opts))[1]
-    card = rt.run(problem, prng.PRNGKey(6), num_rounds=10, **opts)
+        small, prng.PRNGKey(6), num_rounds=0, **kw))[1]
+    card, _, counts = counted(torch, launches, lambda: rt.run(
+        small, prng.PRNGKey(6), num_rounds=10, **kw))
+    if counts != {**ZERO, "chol_update": n - 1, "region_aggregate": 10}:
+        raise AssertionError(f"lowrank d={d} launches {counts}")
     check_finite(torch, card)
     t0 = time.time()
-    host = rt.run(on_host(problem), prng.PRNGKey(6), device="cpu",
-                  num_rounds=10, **opts)
+    host = rt.run(on_host(small), prng.PRNGKey(6), device="cpu",
+                  num_rounds=10, **kw)
     host_s = time.time() - t0
     same_traces(torch, card, host, "lowrank_init card vs host")
     scale = host.xs.abs().max().item()
@@ -745,15 +1102,82 @@ def phase_lowrank(torch, rt, report):
     if not err <= 1e-4 * scale:
         raise AssertionError(f"lowrank_init card vs host: xs max |err| "
                              f"{err} > 1e-4 x {scale}")
-    steps = (n - 1) * r * d
-    report["lowrank_init"] = {"num_workers": n, "dim": d, "rank": r,
-                              "column_steps": steps, "init_s": init_s,
-                              "host_run_s": host_s,
-                              "xs_vs_host_max_rel": err / scale}
-    log(f"lowrank_init: N={n} d={d} rank {r}: init {init_s:.2f} s on the "
-        f"card ({steps} column steps, {init_s / steps * 1e6:.1f} us each); "
-        f"host run {host_s:.2f} s; card vs host xs max |err| "
-        f"{err / scale:.3e} x max |x|")
+    report["chol_update"] = row
+    report["lowrank_init"] = {
+        "num_workers": n, "dim": d, "rank": r, "init_s": init_s,
+        "loop_init_s": loop_s, "factor_vs_loop_max_rel": ferr / fscale,
+        "host_run_s": host_s, "xs_vs_host_max_rel": err / scale,
+        "launches": counts, "init_d8192": init_row}
+    log(f"lowrank_init N={n} d={d} rank {r}: init {init_s:.3f} s on the "
+        f"card (the factor through the plain loop {loop_s:.2f} s; kernel "
+        f"vs loop max |err| {ferr / fscale:.3e} x max |L|); host run "
+        f"{host_s:.2f} s; card vs host xs max |err| {err / scale:.3e} x "
+        f"max |x|; launches {counts}")
+
+
+def phase_train_grad(torch, report):
+    """Gradients through K3 and K4 at the serve paths' prefill shapes:
+    a scalar loss (half the sum of squared outputs, the wkv state's
+    too) through ``ops.flash_attention`` / ``ops.rwkv_wkv`` on the card
+    (the kernel forward, the plain twin's vector-Jacobian product
+    backward) against the same loss through the twins: each element
+    within tol x (max |grad| + its own |grad|).  K3 in bf16 at its forward
+    tolerance (2e-2); K4 in f32 at its forward tolerance (2e-4) and in
+    bf16, the serve path's type, at ``BF16_STEP``: a gradient has its
+    input's type, so K4's bf16 gradients are the twin's f32 gradients
+    (which differ from the kernel run's by f32 rounding of y) rounded
+    to bf16, where two such values may land one step apart."""
+    from repro_torch.kernels import LAUNCHES, ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16 = torch.bfloat16
+    out = {}
+    cases = (
+        ("flash_attention", ops.flash_attention, ref.flash_attention_ref,
+         lambda: attn_inputs(torch, 4, 1024, 24, 8, 128, bf16, gen), 2e-2),
+        ("rwkv_wkv", ops.rwkv_wkv, ref.rwkv_wkv_ref,
+         lambda: wkv_inputs(torch, 4, 1024, 40, 64, torch.float32, gen,
+                            True), 2e-4),
+        ("rwkv_wkv", ops.rwkv_wkv, ref.rwkv_wkv_ref,
+         lambda: wkv_inputs(torch, 4, 1024, 40, 64, bf16, gen, True),
+         BF16_STEP))
+    for name, fn, twin, make, tol in cases:
+        args = [a.detach().requires_grad_(True) for a in make()]
+
+        def grads(f):
+            for a in args:
+                a.grad = None
+            o = f(*args)
+            o = o if isinstance(o, tuple) else (o,)
+            sum(0.5 * (t.float() ** 2).sum() for t in o).backward()
+            return [a.grad.clone() for a in args]
+        before = LAUNCHES[name]
+        (got, secs) = sync_time(torch, lambda: grads(fn))
+        if LAUNCHES[name] != before + 1:
+            raise AssertionError(f"train_grad {name}: launches "
+                                 f"{LAUNCHES[name] - before}")
+        want, twin_s = sync_time(torch, lambda: grads(twin))
+        worst = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            scale = w.float().abs().max().item()
+            e = (g.float() - w.float()).abs().max().item()
+            if not torch.allclose(g.float(), w.float(), rtol=tol,
+                                  atol=tol * scale):
+                raise AssertionError(f"train_grad {name} input {i}: max "
+                                     f"|err| {e} x max |grad| {scale}")
+            worst = max(worst, e / scale)
+        dtype = str(args[0].dtype).split(".")[-1]
+        out[f"{name}_{dtype}"] = row = {
+            "shape": list(args[0].shape), "max_rel_err": worst,
+            "dtype": dtype, "tol": tol, "seconds": secs,
+            "twin_seconds": twin_s}
+        log(f"train_grad {name} at {tuple(args[0].shape)} "
+            f"{row['dtype']}: gradients of "
+            f"{len(args)} inputs equal the twin's within {worst:.3e} x max "
+            f"|grad| (tol {tol}); forward + backward {secs:.2f} s "
+            f"(twin {twin_s:.2f} s)")
+        del args, got, want
+        torch.cuda.empty_cache()
+    report["train_grad"] = out
 
 
 def sass_counts(build):
@@ -1365,6 +1789,9 @@ def main(argv=None) -> int:
                     type=lambda v: [int(x) for x in v.split(",")],
                     help="only log serve_consistent's full-depth gaps at "
                          "these seeds, then exit")
+    ap.add_argument("--loop-init", action="store_true",
+                    help="only time the d = 8192 hessian_rank=4 init "
+                         "through the plain loop, then exit")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1394,6 +1821,9 @@ def main(argv=None) -> int:
     if args.consistent_seeds:
         consistent_readings(torch, args.consistent_seeds)
         return 0
+    if args.loop_init:
+        loop_init(torch, rt)
+        return 0
     report = {}
     launches = dict(ZERO)
     failed = []
@@ -1410,7 +1840,11 @@ def main(argv=None) -> int:
             ("batch_diag", lambda: phase_batch(torch, rt, report, launches,
                                                "diag")),
             ("options", lambda: phase_options(torch, rt, report, launches)),
-            ("lowrank_init", lambda: phase_lowrank(torch, rt, report)),
+            ("hierarchy", lambda: phase_hierarchy(torch, rt, report,
+                                                  launches)),
+            ("lowrank_init", lambda: phase_lowrank(torch, rt, report,
+                                                   launches)),
+            ("train_grad", lambda: phase_train_grad(torch, report)),
             ("serve_rwkv", lambda: phase_serve(
                 torch, report, launches, "rwkv6-3b",
                 {"rwkv_wkv": 32 * (1 + 31)})),

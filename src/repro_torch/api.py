@@ -24,13 +24,12 @@ from .core.ranl import RanlResult, _run_batch, _run_reference, \
 from .device import resolve_device
 
 ENGINES = ("scan", "batch", "sharded", "sharded2d", "reference")
-_MESH_REQUIRED = ("sharded", "sharded2d")
 
 # what is not ported yet -> the ROADMAP (Queue 1) item that ports it
 _NOT_YET = {
     "sharded": "item 12 (1-D sharded engine)",
     "sharded2d": "item 13 (2-D engine)",
-    "hierarchy": "item 11 (hierarchy)",
+    "mesh": "item 12 (the batch engine's seed sharding over a mesh)",
     "overlap": "item 12 (overlapped sharded rounds)",
     "journal": "item 15 (observability)",
 }
@@ -60,11 +59,13 @@ def _resolve(engine, options, mesh, controller, overrides):
     if overrides:
         opts = opts.merged(**overrides)
     if mesh is not None:
-        raise ValueError(f"engine {engine!r} takes no mesh — the "
-                         f"sharded engines are {_MESH_REQUIRED}")
-    for name in ("overlap", "hierarchy"):
-        if getattr(opts, name) not in (None, False):
-            raise _not_yet(name, f"={getattr(opts, name)!r}")
+        if engine == "batch":
+            raise _not_yet("mesh", "=")
+        raise ValueError(f"engine {engine!r} takes no mesh — use "
+                         f"'sharded'/'sharded2d' (or 'batch' to shard "
+                         f"seeds)")
+    if opts.overlap:
+        raise _not_yet("overlap", f"={opts.overlap!r}")
     if engine == "reference":
         if opts.curvature != "dense":
             raise ValueError("the reference engine is the dense-eigh "
@@ -78,6 +79,11 @@ def _resolve(engine, options, mesh, controller, overrides):
             raise ValueError("the reference engine is the dense-eigh "
                              "oracle — hessian_rank has no host-loop "
                              "form (use engine='scan')")
+        if opts.hierarchy is not None:
+            raise ValueError("hierarchy= (pod-of-pods aggregation) has "
+                             "no host-loop form on the reference oracle "
+                             "— use engine='scan' or a sharded engine "
+                             "on a pod mesh")
     if isinstance(controller, str):
         controller = make_controller(controller)
     if isinstance(controller, QuorumController):
@@ -99,6 +105,8 @@ def _check_device(problem, device, cost):
     if cost is not None:
         held += [("cost model", cost.compute_rate),
                  ("cost model", cost.bandwidth)]
+    if cost is not None and cost.pod_bw is not None:
+        held.append(("cost model", cost.pod_bw))
     for what, t in held:
         if t.device.type != dev.type or (
                 dev.index is not None and t.device.index != dev.index):
@@ -109,7 +117,9 @@ def _check_device(problem, device, cost):
 
 def run(problem, key, *, engine: str = "scan",
         options: RanlOptions | None = None, device=None, mesh=None,
-        controller=None, cost=None, journal=None,
+        axis_name: str = "data", data_axis: str = "data",
+        model_axis: str = "model", pod_axis: str = "pod",
+        controller=None, cost=None, journal=None, scenario=None,
         **overrides) -> RanlResult:
     """Run Algorithm 1 on ``problem`` with the chosen engine.
 
@@ -118,8 +128,14 @@ def run(problem, key, *, engine: str = "scan",
     axis.  ``controller``: a controller object, a ``make_controller``
     spec string or ``None`` (the options' policy); ``cost``: a
     ``CostModel`` on the problem's device or ``None`` (uniform).
-    ``**overrides`` are ``RanlOptions`` fields merged into ``options``.
+    ``axis_name``, ``data_axis``, ``model_axis`` and ``pod_axis`` name
+    mesh axes, which only the sharded engines and a sharded batch read:
+    the one-card engines take no mesh and ignore them, as the
+    reference's do.  ``scenario`` labels the journal and is ignored
+    without one.  ``**overrides`` are ``RanlOptions`` fields merged into
+    ``options``.
     """
+    del axis_name, data_axis, model_axis, pod_axis, scenario
     opts, controller = _resolve(engine, options, mesh, controller,
                                 overrides)
     if journal is not None:

@@ -1,5 +1,6 @@
 """Paper core: RANL (Algorithm 1) and its substrate, in PyTorch."""
 
+from ..kernels.ref import chol_rank1_update  # noqa: F401
 from .aggregation import late_fold_updates, quorum_aggregate, server_aggregate  # noqa: F401
 from .baselines import (  # noqa: F401
     rounds_to_tol,
@@ -10,7 +11,6 @@ from .baselines import (  # noqa: F401
 )
 from .compression import (  # noqa: F401
     CompressionSpec,
-    chol_rank1_update,
     compress_rows,
     compressed_quorum_aggregate,
     compressed_server_aggregate,

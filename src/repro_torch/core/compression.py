@@ -10,12 +10,15 @@
   ``compressed_quorum_aggregate`` compress each worker's uplink row, the
   single-reduction contribution ``where(covered, G_i/denom, C_i/N)``; the
   gradient memory C stays exact (it is server state, not wire traffic);
+* ``pod_sum_compressed``: the hierarchical runs' inter-pod exchange,
+  one compressed sum over a pod axis with its own error feedback;
 * ``uplink_bytes``: the metered bytes on the wire (4 a coordinate
   uncompressed, 1 plus a 4-byte scale for int8, 2 for bf16, for top-k
   the k largest trained regions plus 4 bytes of metadata each);
-* ``chol_rank1_update`` / ``lowrank_hmu_factor``: instead of N dense
-  worker Hessians, worker 0's projected Hessian plus the top-``rank``
-  eigenpairs of every other worker's, folded by Cholesky rank-1 updates.
+* ``lowrank_hmu_factor``: instead of N dense worker Hessians, worker 0's
+  projected Hessian plus the top-``rank`` eigenpairs of every other
+  worker's, folded in by Cholesky updates (``kernels.ops.chol_update``:
+  one launch of the hand-written kernel per worker on the card).
 
 The reference's rules, values and draws.  Top-k breaks ties in energy by
 the lower region index, as ``jax.lax.top_k`` does, through a stable sort,
@@ -101,6 +104,29 @@ def compress_rows(comp: CompressionSpec | None, Y, region_ids,
     return torch.where(keep, Y, torch.zeros_like(Y))
 
 
+def pod_sum_compressed(comp: CompressionSpec, y, err):
+    """The compressed sum over the pod axis of ``y`` (..., P, d), the
+    per-pod payloads, under error feedback ``err`` (same shape).
+    Returns (total (..., d), new_err).  int8: one scale shared by the
+    pods (the max over all of them), each pod clipped to ±(127 // P)
+    levels so that the summed integers fit in int8; bf16: the rounded
+    payloads summed."""
+    n_agg = y.shape[-2]
+    y = y + err
+    if comp.kind == "int8":
+        scale = y.abs().amax(dim=(-2, -1), keepdim=True)
+        cap = max(127 // max(int(n_agg), 1), 1)
+        step = torch.clamp_min(scale, _EPS) / cap
+        q = torch.clamp(torch.round(y / step), -cap, cap)
+        total = q.to(torch.int32).sum(dim=-2).to(y.dtype) * step[..., 0, :]
+        return total, y - q * step
+    if comp.kind == "bf16":
+        sent = y.to(torch.bfloat16).to(y.dtype)
+        return sent.sum(dim=-2), y - sent
+    raise ValueError(f"pod exchange compression {comp.kind!r} is not "
+                     f"supported (int8/bf16 only)")
+
+
 def uplink_bytes(comp: CompressionSpec | None, M: torch.Tensor,
                  sizes_q: torch.Tensor) -> torch.Tensor:
     """(..., N) f32 modeled uplink bytes per worker for one round's
@@ -164,48 +190,27 @@ def compressed_quorum_aggregate(G, Mx, C, err, on_time, delays, late_buf,
 # low-rank running update to [H]_μ (init-phase Hessian compression)
 # --------------------------------------------------------------------------
 
-def chol_rank1_update(L, u, alpha):
-    """Lower Cholesky factor of ``L Lᵀ + alpha u uᵀ`` (alpha clamped at 0),
-    O(d²): the rotation sweep over columns, one column a step.
-
-    The reference runs the sweep as one compiled ``lax.scan``; here it is
-    a Python loop of a few small operations a column, which is what makes
-    the low-rank init slow on the card at large d (ROADMAP)."""
-    L = L.clone()
-    n = L.shape[0]
-    w = torch.sqrt(torch.clamp_min(torch.as_tensor(
-        alpha, dtype=L.dtype, device=L.device), 0.0)) * u
-    for k in range(n):
-        lkk, wk = L[k, k], w[k]
-        r = torch.sqrt(lkk * lkk + wk * wk)
-        c = r / lkk
-        s = wk / lkk
-        col = (L[k + 1:, k] + s * w[k + 1:]) / c
-        w[k + 1:] = c * w[k + 1:] - s * col
-        L[k + 1:, k] = col
-        L[k, k] = r
-    return L
-
-
 def lowrank_hmu_factor(problem, x0, hkeys, mu: float, *, rank: int):
     """The low-rank running [H]_μ build: a lower Cholesky factor of
 
         S/N,  S = [H_0]_μ + Σ_{i≥1} (μI + top_r(clamp(H_i − μI, 0)))
 
     with each worker's top-``rank`` eigenpairs folded into chol(S) by
-    ``chol_rank1_update``.  Every summand dominates μI, so S/N ⪰ μI
-    without a final projection; at ``rank = d`` with every H_i ⪰ μI it
-    is chol(mean_i H_i)."""
+    ``kernels.ops.chol_update``, one call per worker (the eigenpairs in
+    ascending order, as the reference folds them).  The factor is kept
+    column-major, the layout the kernel updates.  Every summand dominates
+    μI, so S/N ⪰ μI without a final projection; at ``rank = d`` with
+    every H_i ⪰ μI it is chol(mean_i H_i)."""
+    from ..kernels import ops
     from .hessian import project_psd, sym_eigh
     N, d = problem.num_workers, problem.dim
     r = min(int(rank), d)
     eye = torch.eye(d, dtype=torch.float32, device=problem.device)
     S0 = project_psd(problem.worker_hessian(0, x0, hkeys[0]), mu) \
         + (N - 1) * mu * eye
-    L = torch.linalg.cholesky(S0)
+    L = torch.linalg.cholesky(S0).mT.contiguous().mT
     for i in range(1, N):
         w, V = sym_eigh(problem.worker_hessian(i, x0, hkeys[i]))
-        w = torch.clamp_min(w - mu, 0.0)
-        for j in range(d - r, d):
-            L = chol_rank1_update(L, V[:, j], w[j])
-    return L / float(math.sqrt(float(N)))
+        L = ops.chol_update(L, V[:, d - r:].mT.contiguous(),
+                            torch.clamp_min(w[d - r:] - mu, 0.0))
+    return (L / float(math.sqrt(float(N)))).contiguous()

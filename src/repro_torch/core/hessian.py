@@ -101,8 +101,15 @@ def cho_solve(chol_l, g):
     ``torch.cholesky_solve`` computes the same two solves, bit for bit on
     the host, but on an H100 it takes B = 8 factors of d = 8192 in about
     17× the time of these two batched calls (PERF.md §5)."""
-    y = torch.linalg.solve_triangular(chol_l, g[..., None], upper=False)
-    return torch.linalg.solve_triangular(chol_l.mT, y, upper=True)[..., 0]
+    return cho_solve_rows(chol_l, g[..., None, :])[..., 0, :]
+
+
+def cho_solve_rows(chol_l, g):
+    """Solve (L Lᵀ) x = g_p for the P rows of g (..., P, d) against the
+    factor(s) (..., d, d): the same two triangular solves, with P
+    right-hand sides.  Returns (..., P, d)."""
+    y = torch.linalg.solve_triangular(chol_l, g.mT, upper=False)
+    return torch.linalg.solve_triangular(chol_l.mT, y, upper=True).mT
 
 
 def solve_projected(a_mu, g):

@@ -15,8 +15,9 @@ Three engines, as in the reference:
   all of them: the gradient oracle is one product over A or X with a
   (B·N)-column right-hand side (A is read once a round whatever B is),
   the aggregation one launch of the seed-batched kernel, the step one
-  batched ``cholesky_solve`` or diagonal division.  Masks for all seeds
-  come from one draw over the stacked keys, equal to each seed's own;
+  pair of batched triangular solves or a diagonal division.  Masks for
+  all seeds come from one draw over the stacked keys, equal to each
+  seed's own;
 * ``_run_scan`` (engine ``"scan"``): the same loop at B = 1.  With
   ``use_kernel`` (the default) each round's aggregation goes to the
   hand-written kernels: ``region_aggregate`` before the dense Cholesky
@@ -33,10 +34,20 @@ late work through a ``(max_delay, d)`` late buffer; compressed uplinks
 the fused ``ranl_update`` kernel, which has no late-fold or
 error-feedback form.  ``hessian_rank`` builds [H]_μ by low-rank updates.
 
+Hierarchical pod-of-pods rounds (``hierarchy``) split the N workers into
+P contiguous pods of N/P, each running the flat round on its own iterate
+with pod-local counts, memory fallback and quorum deadlines; every
+``period`` rounds the pods exchange anchored deltas (optionally int8- or
+bf16-compressed) and damp toward their mean.  The loop carries B seeds'
+P pods as B·P rows of N/P workers, so a synchronous, uncompressed pod
+round is still one kernel launch for all of them, where the reference's
+pod rounds take its plain aggregation.  A flat run is the same loop at
+P = 1 with no exchange.
+
 Keys are host-side (``repro_torch.prng``) and reproduce the reference's
 streams, so masks, coverage, ``comm_floats`` and the coverage minima equal
 the reference's exactly.  Per-round traces stay on the device and are
-stacked after the loop.  Hierarchy arrives with ROADMAP Queue 1 item 11.
+stacked after the loop.
 """
 
 from __future__ import annotations
@@ -50,10 +61,12 @@ from .. import prng
 from ..kernels import ops as kernel_ops
 from .aggregation import quorum_aggregate, server_aggregate
 from .compression import compressed_quorum_aggregate, \
-    compressed_server_aggregate, lowrank_hmu_factor, uplink_bytes
-from .hessian import cho_factor, cho_solve, hutchinson_diag, project_diag, \
-    project_psd, project_psd_ns, running_mean_hessian, solve_projected
-from .options import RanlOptions
+    compressed_server_aggregate, lowrank_hmu_factor, parse_compression, \
+    pod_sum_compressed, uplink_bytes
+from .hessian import cho_factor, cho_solve, cho_solve_rows, hutchinson_diag, \
+    project_diag, project_psd, project_psd_ns, running_mean_hessian, \
+    solve_projected
+from .options import HierarchySpec, RanlOptions
 from .regions import contiguous_regions, expand_mask, region_sizes
 
 _F32 = torch.float32
@@ -73,8 +86,10 @@ class RanlResult:
     round_time: torch.Tensor = None   # (T,) simulated wall-clock per round
     max_stale: torch.Tensor = None    # (T,) int32 max region staleness
     comm_bytes: torch.Tensor = None   # (T,) modeled uplink bytes
-    pod_bytes: torch.Tensor = None    # (T,) inter-pod bytes (0: flat runs)
-    xs_pods: torch.Tensor = None      # hierarchical runs only
+    pod_bytes: torch.Tensor = None    # (T,) inter-pod bytes (0 for flat
+                                      # runs without a pod topology)
+    xs_pods: torch.Tensor = None      # (T+2, P, d) pod iterates of
+                                      # hierarchical runs (xs is their mean)
     # batched runs carry a leading seed axis (B, ...) on every array
 
 
@@ -132,36 +147,41 @@ def _init_seeds(problem, k_init, **cfg):
 
 def _round_diagnostics(covered_q, count_q, n_workers: int):
     """Per-round (coverage_mean, min_count, min_covered_count), each over
-    the last (region) axis: the raw count minimum feeds ``tau_star``;
-    uncovered regions map to N in the second, which feeds
-    ``tau_covered``.  The mean is the sum times the f32 reciprocal of Q,
-    which is how the reference's mean evaluates."""
-    inv_q = float(np.float32(1.0) / np.float32(covered_q.shape[-1]))
-    return (covered_q.to(_F32).sum(dim=-1) * inv_q, count_q.amin(dim=-1),
+    the last two (pod, region) axes: the raw count minimum feeds
+    ``tau_star``; uncovered regions map to N in the second, which feeds
+    ``tau_covered``.  The mean is the sum times the f32 reciprocal of
+    P·Q, which is how the reference's mean evaluates."""
+    inv_q = float(np.float32(1.0) / np.float32(covered_q.shape[-2]
+                                               * covered_q.shape[-1]))
+    dims = (-2, -1)
+    return (covered_q.to(_F32).sum(dim=dims) * inv_q, count_q.amin(dim=dims),
             torch.where(covered_q, count_q,
-                        torch.full_like(count_q, n_workers)).amin(dim=-1))
+                        torch.full_like(count_q, n_workers)).amin(dim=dims))
 
 
-def _trace_row(Mx, count_q, round_t, telem, ubytes, n_workers: int):
+def _trace_row(Mx, count_pq, round_t, telem, ubytes, n_workers: int,
+               pbytes=None):
     """One round's device-side trace entries, each (...,) over seeds:
     (coverage, comm_floats, min_count, min_covered_count, round_time,
-    max_stale, comm_bytes)."""
+    max_stale, comm_bytes, pod_bytes).  ``count_pq`` (..., P, Q): each
+    pod's coverage counts, of ``n_workers`` workers each (P = 1: flat)."""
     cov_mean, min_count, min_cov_count = _round_diagnostics(
-        count_q > 0, count_q, n_workers)
+        count_pq > 0, count_pq, n_workers)
     return (cov_mean, Mx.sum(dim=(-2, -1)).to(torch.int32), min_count,
             min_cov_count, round_t, telem.stale_q.amax(dim=-1),
-            ubytes.sum(dim=-1))
+            ubytes.sum(dim=-1), torch.zeros_like(round_t)
+            if pbytes is None else pbytes)
 
 
 def _stack_rows(rows, batch: tuple, device):
     """Per-round rows -> (cov, comm, min_counts, min_cov_counts, times,
-    stale, cbytes), each ``batch + (T,)``."""
+    stale, cbytes, pbytes), each ``batch + (T,)``."""
     if not rows:
         empty_f = torch.zeros(batch + (0,), dtype=_F32, device=device)
         empty_i = torch.zeros(batch + (0,), dtype=torch.int32,
                               device=device)
         return (empty_f, empty_i, empty_i, empty_i, empty_f, empty_i,
-                empty_f)
+                empty_f, empty_f)
     return tuple(torch.stack(col, dim=-1) for col in zip(*rows))
 
 
@@ -188,20 +208,23 @@ def _controller_mask(controller, cost, ctrl_state, telem, kt, t: int,
     return M, ctrl_state
 
 
-def _clock(cost, M, sizes_q, ubytes, t: int, qspec):
+def _clock(cost, M, sizes_q, ubytes, t: int, qspec, pods: int = 1):
     """The round's simulated clock: (work, times, round_time, on_time,
     delays).  Synchronous rounds end at the slowest participant; quorum
-    rounds at the quorum deadline, with each worker's on-time flag and
-    delay (None for synchronous rounds)."""
+    rounds at the latest of the ``pods`` pods' quorum deadlines (each
+    pod's split over its own workers), with each worker's on-time flag
+    and delay (None for synchronous rounds)."""
     from ..hetero.cost import quorum_split, worker_times
     work = (M * sizes_q).sum(dim=-1).to(torch.int32)
     times = worker_times(cost, work, t, ubytes)
     if qspec is None:
         return work, times, times.amax(dim=-1), None, None
     deadline, on_time, delays = quorum_split(
-        times, M, quorum=qspec.quorum, quorum_tau=qspec.quorum_tau,
+        times.unflatten(-1, (pods, -1)), M.unflatten(-2, (pods, -1)),
+        quorum=qspec.quorum, quorum_tau=qspec.quorum_tau,
         max_delay=qspec.max_delay)
-    return work, times, deadline, on_time, delays
+    return (work, times, deadline.amax(dim=-1), on_time.flatten(-2),
+            delays.flatten(-2))
 
 
 def _aggregate(G, Mx, C, err, late_buf, on_time, delays, *, region_ids,
@@ -227,14 +250,16 @@ def _aggregate(G, Mx, C, err, late_buf, on_time, delays, *, region_ids,
     return g, C, err, late_buf
 
 
-def _observe(telem, M, on_time, work, times):
-    """-> (count_q, telemetry): the round's coverage counts (on-time
-    workers only in quorum rounds) folded into the telemetry."""
+def _observe(telem, M, on_time, work, times, pods: int = 1):
+    """-> (count_pq (..., P, Q), telemetry): each pod's coverage counts
+    (on-time workers only in quorum rounds), their sum over the pods
+    folded into the telemetry."""
     from ..hetero.controller import next_telemetry
     if on_time is not None:
         M = M & on_time[..., None]
-    count_q = M.sum(dim=-2).to(torch.int32)
-    return count_q, next_telemetry(telem, count_q, work, times)
+    count_pq = M.unflatten(-2, (pods, -1)).sum(dim=-2).to(torch.int32)
+    return count_pq, next_telemetry(telem, count_pq.sum(dim=-2), work,
+                                    times)
 
 
 def _hetero_defaults(problem, policy, controller, cost):
@@ -253,66 +278,162 @@ def _hetero_defaults(problem, policy, controller, cost):
     return ctrl, cost
 
 
+def _pod_wire_bytes(comp, n_coords: int) -> float:
+    """Modeled bytes of an ``n_coords``-float payload crossing the
+    inter-pod links under the ``core.compression`` wire model (int8: one
+    byte a coordinate plus the 4-byte shared scale; bf16: two;
+    uncompressed or top-k: four): what ``RanlResult.pod_bytes`` meters
+    and ``pod_exchange_time`` charges."""
+    if comp is None:
+        return 4.0 * n_coords
+    if comp.kind == "int8":
+        return float(n_coords) + 4.0
+    if comp.kind == "bf16":
+        return 2.0 * n_coords
+    return 4.0 * n_coords
+
+
+def _check_hier(problem, hspec: HierarchySpec | None, num_rounds: int):
+    """Dispatch-time divisibility checks of a hierarchical run."""
+    if hspec is None:
+        return
+    if problem.num_workers % hspec.pods:
+        raise ValueError(
+            f"num_workers={problem.num_workers} must divide evenly "
+            f"across hierarchy pods={hspec.pods}")
+    if num_rounds > 0 and num_rounds % hspec.period:
+        raise ValueError(
+            f"num_rounds={num_rounds} must be a multiple of the "
+            f"hierarchy exchange period={hspec.period}")
+
+
+class _Exchange:
+    """The inter-pod exchange of a hierarchical run, every ``period``
+    rounds: anchored deltas summed over the pods (through
+    ``pod_sum_compressed`` when the exchange is compressed, with its own
+    error-feedback residual), then each pod damped toward the mean,
+
+        Δ_p = x_p − anchor;  x̄ = anchor + Σ_p Δ_p / P;
+        x_p += γ (x̄ − x_p);  anchor = x̄,
+
+    the anchor starting at the post-init iterate ``x1`` (B, d)."""
+
+    def __init__(self, hspec: HierarchySpec, x1):
+        self.pods, self.gamma = hspec.pods, hspec.gamma
+        self.comp = parse_compression(hspec.compression)
+        self.anchor = x1
+        self.err = (None if self.comp is None else
+                    torch.zeros(x1.shape[:1] + (self.pods,) + x1.shape[1:],
+                                dtype=_F32, device=x1.device))
+
+    def __call__(self, x):
+        """x (B, P, d) -> the damped pod iterates."""
+        delta = x - self.anchor[:, None, :]
+        if self.comp is None:
+            total = delta.sum(dim=1)
+        else:
+            total, self.err = pod_sum_compressed(self.comp, delta, self.err)
+        self.anchor = self.anchor + total / self.pods
+        return x + self.gamma * (self.anchor[:, None, :] - x)
+
+
 def _scan_rounds(problem, k_loop, x1, C0, chol, hdiag, cost, *,
                  num_rounds: int, num_regions: int, controller, mu: float,
                  lr: float, curvature: str, use_kernel: bool, qspec=None,
-                 comp=None):
+                 comp=None, hspec: HierarchySpec | None = None):
     """Alg. 1 lines 9–23 as a Python loop over rounds, for B seeds at once
     on a leading axis: ``k_loop`` (B, 2), ``x1`` (B, d), ``C0`` (B, N, d),
-    ``chol`` (B, d, d) or ``hdiag`` (B, d).  The loop state holds (x, C,
-    the error-feedback residual, the late buffer, the controller state,
-    the telemetry); the residual and the buffer exist only when
-    compression or quorum rounds are on.  Returns (xs, dist, losses, cov,
-    comm, min_counts, min_cov_counts, times, stale, cbytes), each with the
-    seed axis first."""
+    ``chol`` (B, d, d) or ``hdiag`` (B, d).
+
+    The P pods of a hierarchical run (P = 1 for a flat one) ride the same
+    axis: the loop state holds R = B·P rows of N/P workers — the
+    iterates (R, d), the memory (R, N/P, d), the error-feedback residual
+    and the late buffer, which exist only when compression or quorum
+    rounds are on — and the controller state and telemetry over all N
+    workers.  Every P-th row is one seed's first pod.  A flat round on a
+    cost model with a pod topology pays one crossing of the param
+    aggregate; a hierarchical run pays its exchange on each window's last
+    round, whose recorded iterates are those before the exchange.
+    Returns (xs, dist, losses, cov, comm, min_counts, min_cov_counts,
+    times, stale, cbytes, pbytes, xs_pods), each with the seed axis
+    first; ``xs`` is the pods' mean and ``xs_pods`` (B, T+2, P, d) is
+    None for flat runs."""
     from ..hetero.controller import initial_telemetry
+    from ..hetero.cost import pod_exchange_time
     N, d, dev = problem.num_workers, problem.dim, problem.device
     B, Q = k_loop.shape[0], num_regions
+    P = 1 if hspec is None else hspec.pods
+    n_pod, R = N // P, B * P
     region_ids = contiguous_regions(d, Q, dev)
     sizes_q = region_sizes(region_ids, Q)
-    x, C = x1, C0
+    x = x1.repeat_interleave(P, dim=0)                   # (R, d)
+    C = C0.reshape(R, n_pod, d)
     err = (None if comp is None
-           else torch.zeros((B, N, d), dtype=_F32, device=dev))
+           else torch.zeros((R, n_pod, d), dtype=_F32, device=dev))
     late_buf = (None if qspec is None else torch.zeros(
-        (B, qspec.max_delay, d), dtype=_F32, device=dev))
+        (R, qspec.max_delay, d), dtype=_F32, device=dev))
+    hdiag_r = None if hdiag is None else hdiag.repeat_interleave(P, dim=0)
     ctrl_state = controller.init_state(N, Q, dev)
     telem = initial_telemetry(N, Q, dev, batch=(B,))
     fused = (curvature == "diag" and use_kernel and qspec is None
              and comp is None)
-    xs = [torch.zeros((B, d), dtype=_F32, device=dev), x1]
+    exchange = None if hspec is None else _Exchange(hspec, x1)
+    charge = None             # (time, bytes) of one crossing of the pods
+    if hspec is not None or cost.pod_bw is not None:
+        wire = _pod_wire_bytes(comp if hspec is None else exchange.comp, d)
+        charge = (pod_exchange_time(cost, wire),
+                  torch.full((B,), wire, dtype=_F32, device=dev))
+    xs = [torch.zeros((B, P, d), dtype=_F32, device=dev),
+          x1[:, None, :].expand(B, P, d)]
     rows = []
     for t in range(1, num_rounds + 1):
         kt = prng.fold_in(k_loop, t)                     # (B, 2)
         M, ctrl_state = _controller_mask(controller, cost, ctrl_state,
                                          telem, kt, t, N, Q, dev)
         Mx = expand_mask(M, region_ids)                  # (B, N, d) bool
-        x_pruned = torch.where(Mx, x[:, None, :], 0.0)   # x ⊙ m_i
+        x_pruned = torch.where(Mx.view(B, P, n_pod, d),  # x_pod ⊙ m_i
+                               x.view(B, P, 1, d), 0.0).view(B, N, d)
         gk = prng.split(prng.fold_in(kt, 7), N)          # (B, N, 2)
         G = problem.worker_grads(x_pruned, gk) * Mx      # ∇F_i ⊙ m_i
         ubytes = uplink_bytes(comp, M, sizes_q)          # (B, N) wire model
-        work, times, round_t, on_time, delays = _clock(cost, M, sizes_q,
-                                                       ubytes, t, qspec)
+        work, times, round_t, on_time, delays = _clock(
+            cost, M, sizes_q, ubytes, t, qspec, pods=P)
+        Gr, Mr = G.view(R, n_pod, d), Mx.view(R, n_pod, d)
         if fused:
-            x, C = kernel_ops.ranl_update(x, hdiag, G, Mx, C, mu=mu, lr=lr)
+            x, C = kernel_ops.ranl_update(x, hdiag_r, Gr, Mr, C, mu=mu,
+                                          lr=lr)
         else:
-            # dense rounds aggregate through the region_aggregate kernel
-            # (the reference's dense branch always takes its jnp form)
+            # synchronous uncompressed rounds aggregate through the
+            # region_aggregate kernel (the reference's dense and pod
+            # rounds always take its jnp form)
             g, C, err, late_buf = _aggregate(
-                G, Mx, C, err, late_buf, on_time, delays,
+                Gr, Mr, C, err, late_buf,
+                None if on_time is None else on_time.view(R, n_pod),
+                None if delays is None else delays.view(R, n_pod),
                 region_ids=region_ids, num_regions=Q, qspec=qspec,
                 comp=comp, use_kernel=use_kernel)
             if curvature == "dense":
-                step = cho_solve(chol, g)
+                # one pair of triangular solves a seed, P right-hand sides
+                step = cho_solve_rows(chol, g.view(B, P, d)).reshape(R, d)
             else:
-                step = g / project_diag(hdiag, mu)
+                step = g / project_diag(hdiag_r, mu)
             x = x - lr * step
-        count_q, telem = _observe(telem, M, on_time, work, times)
-        xs.append(x)
-        rows.append(_trace_row(Mx, count_q, round_t, telem, ubytes, N))
-    xs = torch.stack(xs, dim=1)                          # (B, T+2, d)
+        count_pq, telem = _observe(telem, M, on_time, work, times, pods=P)
+        xs.append(x.view(B, P, d))
+        exchanged = exchange is not None and t % hspec.period == 0
+        if exchanged:
+            x = exchange(x.view(B, P, d)).reshape(R, d)
+        pbytes = None
+        if charge is not None and (exchange is None or exchanged):
+            round_t, pbytes = round_t + charge[0], charge[1]
+        rows.append(_trace_row(Mx, count_pq, round_t, telem, ubytes, n_pod,
+                               pbytes))
+    xs_pods = torch.stack(xs, dim=1)                     # (B, T+2, P, d)
+    xs = xs_pods[:, :, 0] if hspec is None else xs_pods.sum(dim=2) / P
     dist = ((xs - problem.x_star) ** 2).sum(dim=-1)
     losses = problem.losses(xs.reshape(-1, d)).reshape(B, -1)
-    return (xs, dist, losses, *_stack_rows(rows, (B,), dev))
+    return (xs, dist, losses, *_stack_rows(rows, (B,), dev),
+            None if hspec is None else xs_pods)
 
 
 def _config(problem, *, mu, lr, curvature, hutchinson_samples,
@@ -328,8 +449,8 @@ def _config(problem, *, mu, lr, curvature, hutchinson_samples,
 
 def _subsampled(result: RanlResult, record_every: int) -> RanlResult:
     """Keep x⁰, x¹, every ``record_every``-th round's iterate and the
-    last one on ``xs``/``dist_sq``/``losses`` (batched runs along their
-    iterate axis); per-round traces stay full length."""
+    last one on ``xs``/``xs_pods``/``dist_sq``/``losses`` (batched runs
+    along their iterate axis); per-round traces stay full length."""
     k = int(record_every)
     if k <= 1:
         return result
@@ -338,6 +459,8 @@ def _subsampled(result: RanlResult, record_every: int) -> RanlResult:
     idx = torch.as_tensor([0, 1] + [1 + r for r in rounds],
                           device=result.xs.device)
     return dc_replace(result, xs=result.xs.index_select(-2, idx),
+                      xs_pods=None if result.xs_pods is None
+                      else result.xs_pods.index_select(-3, idx),
                       dist_sq=result.dist_sq.index_select(-1, idx),
                       losses=result.losses.index_select(-1, idx))
 
@@ -345,8 +468,11 @@ def _subsampled(result: RanlResult, record_every: int) -> RanlResult:
 def _run_seeds(problem, keys, opts: RanlOptions, *, controller=None,
                cost=None):
     """Init each of the B keys (B, 2), then run the rounds of all B seeds
-    in one loop.  Returns ``_scan_rounds``'s arrays."""
+    in one loop.  Returns (``_scan_rounds``'s arrays, the coverage cap:
+    the workers of a pod)."""
     ctrl, cost = _hetero_defaults(problem, opts.policy, controller, cost)
+    hspec = opts.hierarchy_spec()
+    _check_hier(problem, hspec, int(opts.num_rounds))
     projection = opts.projection or "eigh"
     cfg = _config(problem, mu=opts.mu, lr=opts.lr, curvature=opts.curvature,
                   hutchinson_samples=opts.hutchinson_samples,
@@ -359,27 +485,32 @@ def _run_seeds(problem, keys, opts: RanlOptions, *, controller=None,
         curvature=cfg["curvature"], hutch_samples=hutch,
         projection=projection, ns_iters=opts.ns_iters,
         hessian_rank=opts.hessian_rank)
-    return _scan_rounds(
+    arrays = _scan_rounds(
         problem, k_loop, x1, C0, chol, hdiag, cost,
         num_rounds=int(opts.num_rounds), num_regions=int(opts.num_regions),
         controller=ctrl, use_kernel=bool(opts.use_kernel),
-        qspec=opts.quorum_spec(), comp=opts.compression_spec(), **cfg)
+        qspec=opts.quorum_spec(), comp=opts.compression_spec(),
+        hspec=hspec, **cfg)
+    pods = 1 if hspec is None else hspec.pods
+    return arrays, problem.num_workers // pods
 
 
-def _result(arrays, n_workers: int, record_every: int,
+def _result(arrays, n_cap: int, record_every: int,
             seed: int | None = None) -> RanlResult:
-    """``_scan_rounds``'s arrays -> RanlResult; ``seed`` picks one seed
-    (the scan engine), with the coverage minima as Python ints."""
+    """``_scan_rounds``'s arrays -> RanlResult; the coverage minima are
+    capped at ``n_cap``; ``seed`` picks one seed (the scan engine), with
+    the coverage minima as Python ints."""
     (xs, dist, losses, cov, comm, min_counts, min_cov, times, stale,
-     cbytes) = arrays if seed is None else (a[seed] for a in arrays)
-    tau, tau_cov = _tau_pair(min_counts, min_cov, n_workers)
+     cbytes, pbytes, xs_pods) = arrays if seed is None else (
+        None if a is None else a[seed] for a in arrays)
+    tau, tau_cov = _tau_pair(min_counts, min_cov, n_cap)
     if seed is not None:              # the run's one sync
         tau, tau_cov = (int(v) for v in torch.stack([tau, tau_cov]).tolist())
     return _subsampled(RanlResult(
         xs=xs, dist_sq=dist, losses=losses, coverage=cov, comm_floats=comm,
         tau_star=tau, tau_covered=tau_cov, round_time=times,
-        max_stale=stale, comm_bytes=cbytes,
-        pod_bytes=torch.zeros_like(cbytes)), record_every)
+        max_stale=stale, comm_bytes=cbytes, pod_bytes=pbytes,
+        xs_pods=xs_pods), record_every)
 
 
 def _run_scan(problem, key, opts: RanlOptions, *, controller=None,
@@ -390,10 +521,10 @@ def _run_scan(problem, key, opts: RanlOptions, *, controller=None,
     (``projection`` ``"eigh"`` or ``"ns"``; ``hessian_rank`` for the
     low-rank init); ``"diag"`` uses a Hutchinson diagonal and the fused
     ``ranl_update`` kernel (``use_kernel=False`` for the plain aggregation
-    and step)."""
-    arrays = _run_seeds(problem, prng.as_key(key)[None], opts,
-                        controller=controller, cost=cost)
-    return _result(arrays, problem.num_workers, opts.record_every, seed=0)
+    and step).  ``hierarchy`` runs pod-of-pods rounds (``_scan_rounds``)."""
+    arrays, n_cap = _run_seeds(problem, prng.as_key(key)[None], opts,
+                               controller=controller, cost=cost)
+    return _result(arrays, n_cap, opts.record_every, seed=0)
 
 
 def _run_batch(problem, keys, opts: RanlOptions, *, controller=None,
@@ -405,9 +536,9 @@ def _run_batch(problem, keys, opts: RanlOptions, *, controller=None,
     ``"scan"`` run on ``keys[b]``: the same masks and integer traces, and
     iterates within the rounding of a product over B columns instead of
     one."""
-    arrays = _run_seeds(problem, keys, opts, controller=controller,
-                        cost=cost)
-    return _result(arrays, problem.num_workers, opts.record_every)
+    arrays, n_cap = _run_seeds(problem, keys, opts, controller=controller,
+                               cost=cost)
+    return _result(arrays, n_cap, opts.record_every)
 
 
 def _reference_program(problem, key, cost, *, opts: RanlOptions,
@@ -457,11 +588,11 @@ def _reference_program(problem, key, cost, *, opts: RanlOptions,
         g, C, err, late_buf = _aggregate(
             G, Mx, C, err, late_buf, on_time, delays, region_ids=region_ids,
             num_regions=Q, qspec=qspec, comp=comp, use_kernel=False)
-        count_q, telem = _observe(telem, M, on_time, work, times)
+        count_pq, telem = _observe(telem, M, on_time, work, times)
         x = x - lr * solve_projected(H_mu, g)
         xs.append(x)
-        rows.append(_trace_row(Mx, count_q, round_t, telem, ubytes, N))
-    return (torch.stack(xs), *_stack_rows(rows, (), dev))
+        rows.append(_trace_row(Mx, count_pq, round_t, telem, ubytes, N))
+    return (torch.stack(xs), *_stack_rows(rows, (), dev)[:-1])
 
 
 def _run_reference(problem, key, opts: RanlOptions, *, controller=None,

@@ -19,12 +19,14 @@ from .cost import (  # noqa: F401
     capacity,
     on_device,
     pareto_cost,
+    pod_exchange_time,
     quorum_deadline,
     quorum_split,
     round_time,
     time_to_target,
     uniform_cost,
     with_availability,
+    with_topology,
     worker_times,
 )
 from .scenarios import (  # noqa: F401
@@ -32,5 +34,6 @@ from .scenarios import (  # noqa: F401
     Scenario,
     dirichlet_weights,
     make_scenario,
+    pod_uplinks,
     scenario_problem,
 )

@@ -10,8 +10,9 @@ reference's bit for bit.  ``quorum_split`` is the semi-synchronous clock:
 the round commits at the k-th order statistic of participant times.
 Every function broadcasts over a leading seed axis of its per-round
 inputs (keys ``(..., 2)``, work and masks ``(..., N)``/``(..., N, Q)``).
-The pod topology and the overlap credit arrive with ROADMAP Queue 1
-items 11–12.
+A pod topology (``with_topology``) prices the inter-pod links:
+``pod_exchange_time`` is what one crossing costs.  The overlap credit
+arrives with ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -35,7 +36,13 @@ class CostModel:
     ``overhead`` is paid by each participant; ``dropout_prob`` is i.i.d.
     per-round unavailability; ``churn_period``/``churn_cohorts`` rotate
     offline cohorts; ``diurnal_period``/``diurnal_amplitude`` scale
-    capacity sinusoidally with a per-worker phase."""
+    capacity sinusoidally with a per-worker phase.
+
+    ``pod_bw``: None (a uniform interconnect: crossing pods is free) or
+    (P,) inter-pod uplink BYTES per time unit; an exchange of ``nbytes``
+    across the pods costs ``pod_latency + nbytes / min(pod_bw)``.  Flat
+    runs on such a topology pay it every round, hierarchical runs only
+    on exchange rounds."""
     compute_rate: torch.Tensor    # (N,)
     bandwidth: torch.Tensor       # (N,)
     overhead: float = 0.0
@@ -44,6 +51,8 @@ class CostModel:
     churn_cohorts: int = 4
     diurnal_period: int = 0
     diurnal_amplitude: float = 0.0
+    pod_bw: torch.Tensor | None = None   # (P,)
+    pod_latency: float = 0.0
 
     @property
     def num_workers(self) -> int:
@@ -64,7 +73,9 @@ def uniform_cost(num_workers: int, device, *, rate: float = 1.0,
 def on_device(cost: CostModel, device) -> CostModel:
     """The same cost model with its arrays on ``device``."""
     return replace(cost, compute_rate=cost.compute_rate.to(device),
-                   bandwidth=cost.bandwidth.to(device))
+                   bandwidth=cost.bandwidth.to(device),
+                   pod_bw=None if cost.pod_bw is None
+                   else cost.pod_bw.to(device))
 
 
 def pareto_cost(key, num_workers: int, *, alpha: float = 1.2,
@@ -94,6 +105,26 @@ def with_availability(cost: CostModel, *, dropout_prob: float = 0.0,
                    churn_cohorts=int(churn_cohorts),
                    diurnal_period=int(diurnal_period),
                    diurnal_amplitude=float(diurnal_amplitude))
+
+
+def with_topology(cost: CostModel, *, pod_bw,
+                  pod_latency: float = 0.0) -> CostModel:
+    """Attach an inter-pod link topology: ``pod_bw`` (P,) BYTES per time
+    unit per pod uplink (the full vector: asymmetric uplinks stay
+    explicit) and a fixed per-exchange ``pod_latency``."""
+    return replace(cost, pod_bw=torch.as_tensor(
+        pod_bw, dtype=_F32, device=cost.compute_rate.device),
+        pod_latency=float(pod_latency))
+
+
+def pod_exchange_time(cost: CostModel, nbytes: float) -> torch.Tensor:
+    """Simulated time (a 0-d f32 tensor) for ``nbytes`` to cross the
+    inter-pod links: 0 without a topology."""
+    dev = cost.compute_rate.device
+    if cost.pod_bw is None:
+        return torch.zeros((), dtype=_F32, device=dev)
+    return cost.pod_latency + (torch.tensor(float(nbytes), dtype=_F32,
+                                            device=dev) / cost.pod_bw.min())
 
 
 def available(cost: CostModel, key, t: int) -> torch.Tensor:

@@ -17,9 +17,24 @@ Parameters override with ``name:key=value,...`` (``pareto-stragglers:
 alpha=1.0``, ``dropout:p=0.4,alpha=1.5``: dropout, churn and diurnal ride
 on pareto rates when ``alpha`` is given); every scenario takes ``bw``, a
 finite uplink bandwidth in bytes per time unit.  The same names, defaults
-and draws as the reference.  The pod-topology scenarios
-(``geo-distributed``, ``edge-cohort``, ``diurnal-WAN``) arrive with
-ROADMAP Queue 1 item 11.
+and draws as the reference.
+
+Pod-of-pods topologies attach a per-link inter-pod bandwidth vector
+(``cost.with_topology``):
+
+    geo-distributed         uniform workers in pods joined by slow,
+                            geometrically asymmetric WAN uplinks (pods=2,
+                            pod_bw=64, asym=8, latency=0.5)
+    edge-cohort             pareto rates and i.i.d. dropout, thin
+                            asymmetric uplinks (alpha=1.2, p=0.1, pods=2,
+                            pod_bw=32, asym=4, latency=1.0)
+    diurnal-WAN             geo-distributed pods with staggered diurnal
+                            capacity (period=20, amp=0.8, pods=2,
+                            pod_bw=64, asym=8, latency=0.5)
+
+They take ``pods`` (P), ``pod_bw`` (the fastest pod uplink), ``asym``
+(the slowest is ``pod_bw / asym``, geometric in between) and
+``latency`` (a fixed per-exchange cost).
 
 Cost models and Dirichlet weights are drawn on the host and then moved to
 ``device``, so a run on the card and one on the host see the same
@@ -37,7 +52,7 @@ from .. import prng
 from ..device import resolve_device
 from .controller import parse_spec_params
 from .cost import CostModel, on_device, pareto_cost, uniform_cost, \
-    with_availability
+    with_availability, with_topology
 
 _F32 = torch.float32
 
@@ -151,12 +166,44 @@ def _dirichlet(key, n, p):
                     dirichlet_alpha=float(p.get("alpha", 0.3)))
 
 
-def _pods(name):
-    def build(key, n, p):
-        raise NotImplementedError(
-            f"scenario {name!r} needs the pod topology, which is not "
-            f"ported yet: ROADMAP Queue 1 item 11 (hierarchy)")
-    return build
+def pod_uplinks(pods: int, pod_bw: float, asym: float) -> torch.Tensor:
+    """(P,) f32 geometrically asymmetric uplink bandwidths on the host:
+    pod 0 gets ``pod_bw``, pod P−1 ``pod_bw / asym``, the rest
+    interpolate geometrically.  The power runs in float64 on the f32 base
+    and exponents and rounds once."""
+    if pods < 1:
+        raise ValueError(f"pods={pods} must be >= 1")
+    expo = torch.arange(pods, dtype=_F32) / max(pods - 1, 1)
+    base = _f32(1.0 / float(asym)).to(torch.float64)
+    return pod_bw * torch.pow(base, expo.to(torch.float64)).to(_F32)
+
+
+def _with_pods(cost: CostModel, p: dict, *, pod_bw: float, asym: float,
+               latency: float) -> CostModel:
+    bw = pod_uplinks(int(p.get("pods", 2)), float(p.get("pod_bw", pod_bw)),
+                     float(p.get("asym", asym)))
+    return with_topology(cost, pod_bw=bw,
+                         pod_latency=float(p.get("latency", latency)))
+
+
+def _geo(key, n, p):
+    return Scenario("geo-distributed", _with_pods(
+        _base_cost(key, n, p), p, pod_bw=64.0, asym=8.0, latency=0.5))
+
+
+def _edge_cohort(key, n, p):
+    cost = with_availability(_base_cost(key, n, {"alpha": 1.2, **p}),
+                             dropout_prob=float(p.get("p", 0.1)))
+    return Scenario("edge-cohort", _with_pods(
+        cost, p, pod_bw=32.0, asym=4.0, latency=1.0))
+
+
+def _diurnal_wan(key, n, p):
+    cost = with_availability(
+        _base_cost(key, n, p), diurnal_period=int(p.get("period", 20)),
+        diurnal_amplitude=float(p.get("amp", 0.8)))
+    return Scenario("diurnal-WAN", _with_pods(
+        cost, p, pod_bw=64.0, asym=8.0, latency=0.5))
 
 
 SCENARIOS = {
@@ -167,9 +214,9 @@ SCENARIOS = {
     "churn-stragglers": _churn_stragglers,
     "diurnal": _diurnal,
     "dirichlet": _dirichlet,
-    "geo-distributed": _pods("geo-distributed"),
-    "edge-cohort": _pods("edge-cohort"),
-    "diurnal-WAN": _pods("diurnal-WAN"),
+    "geo-distributed": _geo,
+    "edge-cohort": _edge_cohort,
+    "diurnal-WAN": _diurnal_wan,
 }
 
 

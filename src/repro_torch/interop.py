@@ -41,31 +41,31 @@ def problem_from_arrays(kind: str, arrays: dict, scalars: dict,
 
 
 _COST_STATICS = ("overhead", "dropout_prob", "churn_period", "churn_cohorts",
-                 "diurnal_period", "diurnal_amplitude")
+                 "diurnal_period", "diurnal_amplitude", "pod_latency")
 
 
 def cost_from_arrays(arrays: dict, statics: dict, device=None):
     """The reference's ``CostModel`` -> the port's.
 
-    ``arrays``: ``compute_rate`` and ``bandwidth`` (and ``pod_bw``, which
-    must be None until the pod topology is ported); ``statics``: the
-    scalar fields (``overhead``, ``dropout_prob``, ``churn_period``,
-    ``churn_cohorts``, ``diurnal_period``, ``diurnal_amplitude``, and
-    ``pod_latency``/``overlap_credit``, which must be 0)."""
+    ``arrays``: ``compute_rate``, ``bandwidth`` and ``pod_bw`` (None
+    without a pod topology); ``statics``: the scalar fields
+    (``overhead``, ``dropout_prob``, ``churn_period``, ``churn_cohorts``,
+    ``diurnal_period``, ``diurnal_amplitude``, ``pod_latency``, and
+    ``overlap_credit``, which must be 0)."""
     from .hetero.cost import CostModel
-    if arrays.get("pod_bw") is not None or statics.get("pod_latency", 0.0):
-        raise NotImplementedError(
-            "a cost model with a pod topology is not ported yet: ROADMAP "
-            "Queue 1 item 11 (hierarchy)")
     if statics.get("overlap_credit", 0.0):
         raise NotImplementedError(
             "overlap_credit is not ported yet: ROADMAP Queue 1 item 12")
     dev = resolve_device(device)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    pod_bw = arrays.get("pod_bw")
     return CostModel(
-        compute_rate=torch.tensor(np.asarray(arrays["compute_rate"],
-                                             np.float32), device=dev),
-        bandwidth=torch.tensor(np.asarray(arrays["bandwidth"], np.float32),
-                               device=dev),
+        compute_rate=f32(arrays["compute_rate"]),
+        bandwidth=f32(arrays["bandwidth"]),
+        pod_bw=None if pod_bw is None else f32(pod_bw),
         **{k: statics[k] for k in _COST_STATICS if k in statics})
 
 

@@ -6,6 +6,12 @@
   flash_attention — causal GQA self-attention with a sliding window.
       CUDA C++ (``csrc/flash_attention.cu``), for Hopper.
   rwkv_wkv — the RWKV-6 wkv recurrence.  CUDA C++ (``csrc/rwkv_wkv.cu``).
+  chol_update — the low-rank Cholesky update of the ``hessian_rank``
+      init, r rank-1 sweeps in one launch.  CUDA C++
+      (``csrc/chol_update.cu``); it ports no Pallas kernel.
+
+flash_attention and rwkv_wkv carry gradients: their backward is the
+vector-Jacobian product of the plain twin (``ops.with_twin_grad``).
 
 ``ops`` dispatches by device; ``ref`` holds the plain versions;
 ``LAUNCHES`` counts kernel launches; ``build`` compiles the CUDA sources.

@@ -81,3 +81,32 @@ def rwkv_wkv_ref(r, k, v, w, u, state):
         ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], S + u * kv))
         S = w[:, t, :, :, None] * S + kv
     return torch.stack(ys, dim=1), S
+
+
+def chol_rank1_update(L, u, alpha):
+    """Lower Cholesky factor of ``L Lᵀ + alpha u uᵀ`` (alpha clamped at 0),
+    O(d²): the rotation sweep over columns, one column a step, as the
+    reference's ``lax.scan`` (``repro/core/compression.py``)."""
+    L = L.clone()
+    n = L.shape[0]
+    w = torch.sqrt(torch.clamp_min(torch.as_tensor(
+        alpha, dtype=L.dtype, device=L.device), 0.0)) * u
+    for k in range(n):
+        lkk, wk = L[k, k], w[k]
+        r = torch.sqrt(lkk * lkk + wk * wk)
+        c = r / lkk
+        s = wk / lkk
+        col = (L[k + 1:, k] + s * w[k + 1:]) / c
+        w[k + 1:] = c * w[k + 1:] - s * col
+        L[k + 1:, k] = col
+        L[k, k] = r
+    return L
+
+
+def chol_update_ref(L, V, alpha):
+    """Lower Cholesky factor of ``L Lᵀ + Σⱼ alpha_j v_j v_jᵀ``: the plain
+    version of ``chol_update``, one rank-1 sweep per row of ``V`` (r, n)
+    in order.  L (n, n) in any layout; the result keeps L's."""
+    for j in range(V.shape[0]):
+        L = chol_rank1_update(L, V[j], alpha[j])
+    return L

@@ -5,6 +5,7 @@ raise NotImplementedError."""
 
 import ast
 import importlib
+import inspect
 import os
 import pkgutil
 import subprocess
@@ -125,9 +126,9 @@ def test_run_refuses_a_cost_model_on_another_device():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(engine="sharded"), dict(engine="sharded2d"),
-    dict(hierarchy="pods=2,period=1"), dict(overlap=True),
-    dict(journal="run.jsonl")],
+    dict(engine="sharded"), dict(engine="sharded2d"), dict(overlap=True),
+    dict(journal="run.jsonl"),
+    dict(journal="run.jsonl", scenario="geo-distributed")],
     ids=str)
 def test_options_outside_the_slice_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -137,10 +138,12 @@ def test_options_outside_the_slice_raise_not_implemented(kw):
 
 @pytest.mark.parametrize("kw", [
     dict(engine="batch"), dict(compression="int8"), dict(quorum=0.75),
-    dict(hessian_rank=2), dict(controller="resource:keep=0.5")], ids=str)
+    dict(hessian_rank=2), dict(controller="resource:keep=0.5"),
+    dict(hierarchy="pods=2,period=1"),
+    dict(engine="batch", hierarchy="pods=2,period=1")], ids=str)
 def test_options_of_this_slice_run(kw):
     """What raised NotImplementedError before the batch engine, the
-    compression, quorum and controller ports now runs."""
+    compression, quorum, controller and hierarchy ports now runs."""
     key = prng.PRNGKey(1)
     if kw.get("engine") == "batch":
         key = prng.split(key, 2)
@@ -153,22 +156,63 @@ def test_options_of_this_slice_run(kw):
 @pytest.mark.parametrize("spec", ["geo-distributed", "edge-cohort",
                                   "diurnal-WAN"])
 def test_pod_topology_scenarios_raise_not_implemented(spec):
-    from repro_torch.hetero.scenarios import make_scenario
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_scenario(spec, prng.PRNGKey(0), 4, device="cpu")
+    """The pod-topology scenarios once raised NotImplementedError
+    (ROADMAP item 11, now ported): they build, and equal the
+    reference's (``tests/test_torch_hierarchy.py`` holds more
+    parameters)."""
+    jscen = pytest.importorskip("repro.hetero.scenarios")
+    jax = pytest.importorskip("jax")
+    got = make_scenario(spec, prng.PRNGKey(0), 4, device="cpu")
+    want = jscen.make_scenario(spec, jax.random.PRNGKey(0), 4)
+    assert got.name == want.name
+    np.testing.assert_array_equal(got.cost.pod_bw.numpy(),
+                                  np.asarray(want.cost.pod_bw))
+    np.testing.assert_allclose(got.cost.compute_rate.numpy(),
+                               np.asarray(want.cost.compute_rate), rtol=1e-6)
+    assert got.cost.pod_latency == want.cost.pod_latency
 
 
 @pytest.mark.parametrize("kw,err", [
     (dict(engine="warp"), ValueError),
     (dict(engine="reference", curvature="diag"), ValueError),
     (dict(engine="reference", projection="ns"), ValueError),
+    (dict(engine="reference", hierarchy="pods=2,period=1"), ValueError),
     (dict(mesh="mesh"), ValueError),
+    (dict(engine="reference", mesh="mesh"), ValueError),
     (dict(options="fast"), TypeError),
     (dict(bogus=1), TypeError)], ids=str)
 def test_dispatch_checks_match_the_reference(kw, err):
     with pytest.raises(err):
         repro_torch.run(_small(), prng.PRNGKey(1), device="cpu",
                         num_rounds=1, num_regions=2, **kw)
+
+
+def test_batch_engine_with_a_mesh_is_not_ported_yet():
+    """The reference's batch engine shards seeds over a mesh; the port's
+    raises NotImplementedError naming ROADMAP item 12, not the
+    ValueError of a mesh given to a one-device engine."""
+    with pytest.raises(NotImplementedError, match="item 12"):
+        repro_torch.run(_small(), prng.split(prng.PRNGKey(1), 2),
+                        engine="batch", mesh="mesh", device="cpu",
+                        num_rounds=1, num_regions=2)
+
+
+@pytest.mark.parametrize("engine", ["scan", "batch", "reference"])
+@pytest.mark.parametrize("kw", [
+    dict(axis_name="seeds"), dict(data_axis="d"), dict(model_axis="m"),
+    dict(pod_axis="p"), dict(scenario="geo-distributed")], ids=str)
+def test_reference_keywords_are_taken_and_ignored(engine, kw):
+    """``run`` takes the reference's mesh-axis and scenario keywords;
+    the one-card engines ignore them as the reference's do (no mesh, no
+    journal): the result equals the same run without them."""
+    key = prng.PRNGKey(1)
+    if engine == "batch":
+        key = prng.split(key, 2)
+    opts = dict(engine=engine, device="cpu", num_rounds=2, num_regions=2)
+    got = repro_torch.run(_small(), key, **opts, **kw)
+    want = repro_torch.run(_small(), key, **opts)
+    for f in ("xs", "coverage", "comm_floats", "round_time"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 def test_run_takes_one_key_and_interop_validates():
@@ -180,3 +224,15 @@ def test_run_takes_one_key_and_interop_validates():
         interop.problem_from_arrays("svm", {}, {}, device="cpu")
     with pytest.raises(ValueError):
         interop.key_from_numpy(np.zeros((2, 2), np.uint32))
+
+
+def test_engine_docs_name_the_dense_step_the_engine_takes():
+    """The batched dense step is two triangular solves
+    (``core.hessian.cho_solve_rows``), not ``torch.cholesky_solve``; the
+    engine module's documentation says what the code does."""
+    from repro_torch.core import hessian, ranl
+    assert "cholesky_solve" not in ranl.__doc__
+    assert "triangular solves" in ranl.__doc__
+    src = inspect.getsource(hessian.cho_solve_rows)
+    assert src.count("solve_triangular") == 2
+    assert "cholesky_solve(" not in src

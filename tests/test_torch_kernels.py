@@ -769,7 +769,7 @@ def test_build_names_each_library_by_its_source_and_needs_nvcc(monkeypatch):
     a changed source rebuilds; without nvcc the build raises."""
     from repro_torch.kernels import build
     paths = {name: build.library_path(name) for name in build.SOURCES}
-    assert set(paths) == {"flash_attention", "rwkv_wkv"}
+    assert set(paths) == {"flash_attention", "rwkv_wkv", "chol_update"}
     for name, path in paths.items():
         assert path.parent == build.BUILD_DIR
         assert path.name.startswith(name + "-") and path.suffix == ".so"
@@ -783,3 +783,239 @@ def test_build_names_each_library_by_its_source_and_needs_nvcc(monkeypatch):
         build.nvcc()
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         build.check_launch(9, "rwkv_wkv")
+
+
+# --------------------------------------------------------------------------
+# gradients through K3/K4: the forward's kernel, the twin's backward
+# --------------------------------------------------------------------------
+
+def _attn_args(dtype, device, seed=0, requires_grad=True):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(2, 37, n, 32, generator=g).to(dtype).to(device)
+            .requires_grad_(requires_grad) for n in (4, 2, 2)]
+
+
+def _wkv_args(device, seed=0, requires_grad=True, dtype=torch.float32):
+    """r, k, v, u in ``dtype``; w and the state in f32, as K4 takes them."""
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn(2, 9, 3, 16, generator=g).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(-6.0 + 0.5 * torch.randn(2, 9, 3, 16,
+                                                      generator=g)))
+    u = (0.5 * torch.randn(3, 16, generator=g)).to(dtype)
+    s0 = 0.1 * torch.randn(2, 3, 16, 16, generator=g)
+    return [t.to(device).requires_grad_(requires_grad)
+            for t in (r, k, v, w, u, s0)]
+
+
+def _loss(out):
+    outs = out if isinstance(out, tuple) else (out,)
+    return sum(0.5 * (o.float() ** 2).sum() for o in outs)
+
+
+def _grads(fn, args, **kw):
+    for a in args:
+        a.grad = None
+    _loss(fn(*args, **kw)).backward()
+    return [a.grad.clone() for a in args]
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "rwkv_wkv"])
+def test_twin_grad_carries_the_twins_gradients(name):
+    """``with_twin_grad`` around a forward that records no graph (as a
+    kernel launch does) gives every input the plain twin's gradient,
+    bit for bit, the wkv state included; with no input requiring grad it
+    adds nothing to autograd."""
+    twin = getattr(ref, f"{name}_ref")
+    args = (_attn_args(torch.float32, "cpu") if name == "flash_attention"
+            else _wkv_args("cpu"))
+    kw = dict(causal=True, window=5) if name == "flash_attention" else {}
+    kernel_like = torch.no_grad()(twin)
+    got = _grads(lambda *a, **k: ops.with_twin_grad(kernel_like, twin, *a,
+                                                    **k), args, **kw)
+    want = _grads(twin, args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    plain = [a.detach() for a in args]
+    out = ops.with_twin_grad(kernel_like, twin, *plain, **kw)
+    outs = out if isinstance(out, tuple) else (out,)
+    assert all(o.grad_fn is None for o in outs)
+
+
+def test_twin_grad_skips_outputs_and_inputs_without_grad():
+    """Only r requires grad: the wkv state output does not depend on it,
+    and the other inputs get no gradient."""
+    args = _wkv_args("cpu", requires_grad=False)
+    args[0].requires_grad_(True)
+    y, s = ops.with_twin_grad(torch.no_grad()(ref.rwkv_wkv_ref),
+                              ref.rwkv_wkv_ref, *args)
+    (y.sum() + s.sum()).backward()
+    assert args[0].grad is not None
+    assert all(a.grad is None for a in args[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype,tol", [
+    ("flash_attention", torch.bfloat16, 2e-2),
+    ("flash_attention", torch.float32, 2e-4),
+    ("rwkv_wkv", torch.float32, 2e-4),
+    ("rwkv_wkv", torch.bfloat16, 2.0 ** -8)])
+def test_kernel_gradients_equal_the_twins_on_card(cuda, name, dtype, tol):
+    """Gradients of a scalar loss through ops.flash_attention and
+    ops.rwkv_wkv on the card (kernel forward, twin backward) against the
+    twins' own, to the forward tolerances (the loss's gradient is the
+    kernel's output, which sums in another order): within tol·(max|grad|
+    + |grad|), and each call one launch.  K4's bf16 gradients are f32
+    gradients rounded to bf16, where two may land one step (2⁻⁸) apart."""
+    if name == "flash_attention":
+        args = _attn_args(dtype, cuda)
+        args = [a.detach().requires_grad_(True) for a in args]
+        fn, twin = ops.flash_attention, ref.flash_attention_ref
+    else:
+        args = [a.detach().requires_grad_(True)
+                for a in _wkv_args(cuda, dtype=dtype)]
+        fn, twin = ops.rwkv_wkv, ref.rwkv_wkv_ref
+    before = LAUNCHES[name]
+    got = _grads(fn, args)
+    assert LAUNCHES[name] == before + 1
+    want = _grads(twin, args)
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                   atol=tol * scale)
+
+
+# --------------------------------------------------------------------------
+# chol_update: the low-rank Cholesky update
+# --------------------------------------------------------------------------
+
+def _chol_inputs(n, r, seed=0, col_major=True):
+    rng = np.random.default_rng(seed)
+    L = np.linalg.cholesky(np.cov(rng.normal(size=(n, 3 * n)))
+                           + np.eye(n)).astype(np.float32)
+    V = rng.normal(size=(r, n)).astype(np.float32)
+    alpha = rng.normal(size=r).astype(np.float32)
+    L = torch.tensor(L)
+    return (L.mT.contiguous().mT if col_major else L, torch.tensor(V),
+            torch.tensor(alpha))
+
+
+@pytest.mark.parametrize("n,r", [(1, 1), (7, 3), (40, 8), (33, 11)])
+def test_plain_chol_update_is_the_update_and_keeps_the_layout(n, r):
+    """The twin is the r rank-1 sweeps in order: the factor of
+    L Lᵀ + Σ max(α, 0) v vᵀ, lower, in L's layout; the dispatch takes
+    it for CPU tensors."""
+    L, V, alpha = _chol_inputs(n, r)
+    got = ops.chol_update(L, V, alpha)
+    assert got.stride() == L.stride()
+    a = torch.clamp_min(alpha, 0.0).double()
+    want = L.double() @ L.double().T + (V.double().T * a) @ V.double()
+    torch.testing.assert_close(got.double() @ got.double().T, want,
+                               rtol=1e-5, atol=1e-4)
+    assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
+    one_by_one = L
+    for j in range(r):
+        one_by_one = ref.chol_rank1_update(one_by_one, V[j], alpha[j])
+    assert torch.equal(got, one_by_one)
+
+
+def test_chol_update_wrapper_rejects_what_the_kernel_does_not_take():
+    from repro_torch.kernels import chol_update as CU
+    L, V, alpha = _chol_inputs(6, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        CU.chol_update(L, V, alpha)
+    meta = [t.to("meta") for t in (L, V, alpha)]
+    with pytest.raises(ValueError):
+        ops.chol_update(*meta)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,r", [(1, 1), (7, 3), (127, 4), (129, 4),
+                                 (512, 4), (700, 8), (300, 11),
+                                 (2048, 4)])
+def test_chol_update_kernel_matches_plain_on_card(cuda, n, r):
+    """The kernel against the plain loop on the card: the same IEEE
+    operations in the same order for every element, so within rtol 1e-5
+    of max|L| (and bit-equal where the card rounds as the loop's
+    kernels do); one launch per 8 vectors, L's strictly upper part
+    carried over, the layout kept.  Row-major L is refused."""
+    from repro_torch.kernels import chol_update as CU
+    L, V, alpha = (t.to(cuda) for t in _chol_inputs(n, r, seed=n))
+    before = LAUNCHES["chol_update"]
+    got = CU.chol_update(L, V, alpha)
+    assert LAUNCHES["chol_update"] == before + -(-r // CU.MAX_RANK)
+    want = ref.chol_update_ref(L, V, alpha)
+    torch.cuda.synchronize()
+    assert got.stride() == L.stride()
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+    assert torch.equal(torch.triu(got, 1), torch.triu(L, 1))
+    if n > 1:
+        with pytest.raises(ValueError, match="column-major"):
+            CU.chol_update(L.contiguous(), V, alpha)
+
+
+# --------------------------------------------------------------------------
+# hierarchical pod rounds: K1/K2 on B·P rows of N/P workers
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n_pod,d", [(2, 16, 8192), (4, 8, 4096),
+                                          (32, 8, 4096), (6, 3, 513)])
+def test_kernels_at_pod_row_shapes_on_card(cuda, rows, n_pod, d):
+    """K1/K2 at the hierarchical rounds' shapes (the main paths' pods and
+    8 seeds of 4 pods): C′ bit-equal to the plain version, ḡ and x′
+    within rtol 1e-5, one launch each."""
+    g, m, c, x, h = _t(*_batched_inputs(rows, n_pod, d, "random"),
+                       device=cuda)
+    before = dict(LAUNCHES)
+    got, want = K.region_aggregate(g, m, c), ref.region_aggregate_ref(g, m, c)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[1], want[1])
+    got = K.ranl_update(x, h, g, m, c, mu=MU, lr=LR)
+    want = ref.ranl_update_ref(x, h, g, m, c, mu=MU, lr=LR)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[1], want[1])
+    assert LAUNCHES["region_aggregate"] == before["region_aggregate"] + 1
+    assert LAUNCHES["ranl_update"] == before["ranl_update"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curvature,spec", [
+    ("dense", "pods=2,period=3"),
+    ("diag", "pods=4,period=2,gamma=0.5,compression=int8")])
+def test_hierarchical_run_on_card_matches_host(cuda, curvature, spec):
+    """A hierarchical run on the card: one kernel launch a round for all
+    pods, the host run's integer traces, pod_bytes and clock, and pod
+    iterates within 1e-4·max|x| (5e-2 under the int8 exchange, one
+    quantization step)."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch import prng
+    if curvature == "dense":
+        host = repro_torch.make_quadratic(prng.PRNGKey(0), num_workers=8,
+                                          dim=48, kappa=50.0, coupling=0.0,
+                                          num_regions=6, grad_noise=0.1,
+                                          device="cpu")
+    else:
+        host = repro_torch.make_logistic(prng.PRNGKey(0), num_workers=8,
+                                         per_worker=64, dim=48,
+                                         device="cpu")
+    card = dataclasses.replace(host, **{
+        f.name: getattr(host, f.name).to(cuda)
+        for f in dataclasses.fields(host)
+        if isinstance(getattr(host, f.name), torch.Tensor)})
+    kw = dict(num_rounds=6, num_regions=6, curvature=curvature,
+              hierarchy=spec)
+    name = "region_aggregate" if curvature == "dense" else "ranl_update"
+    before = LAUNCHES[name]
+    got = repro_torch.run(card, prng.PRNGKey(1), **kw)
+    assert LAUNCHES[name] == before + 6
+    want = repro_torch.run(host, prng.PRNGKey(1), device="cpu", **kw)
+    for f in ("coverage", "comm_floats", "pod_bytes", "round_time"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    tol = 5e-2 if "int8" in spec else 1e-4
+    scale = float(want.xs_pods.abs().max())
+    assert float((got.xs_pods.cpu() - want.xs_pods).abs().max()) <= \
+        tol * scale

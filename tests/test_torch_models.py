@@ -211,6 +211,38 @@ def test_forward_train_matches_reference(arch):
 
 
 @pytest.mark.parametrize("arch", SERVED)
+def test_train_forward_gives_every_attention_and_time_mix_weight_a_grad(
+        arch):
+    """A backward through ``forward(mode="train")`` of a 2-layer model
+    reaches every weight of every attention and time-mix block (on the
+    card the attention and wkv calls go through K3/K4, whose backward is
+    the plain twin's; ``test_torch_kernels`` holds those gradients to
+    the twins')."""
+    _, tcfg = _cfgs(arch, num_layers=2)
+    params = init_model(tcfg, torch.Generator().manual_seed(0))
+    for leaf in _leaves(params):
+        leaf.requires_grad_(True)
+    toks = torch.tensor(_tokens(tcfg, 2, 16))
+    logits, _, _ = forward(params, {"tokens": toks}, tcfg, mode="train")
+    tcommon.softmax_cross_entropy(logits[:, :-1], toks[:, 1:]).backward()
+    blocks = [lp["tmix" if tcfg.attn_free else "attn"]
+              for lp in params["layers"]]
+    assert len(blocks) == 2
+    for block in blocks:
+        for name, w in block.items():
+            assert w.grad is not None, name
+            assert torch.isfinite(w.grad).all(), name
+
+
+def _leaves(node):
+    if isinstance(node, dict):
+        return [x for v in node.values() for x in _leaves(v)]
+    if isinstance(node, list):
+        return [x for v in node for x in _leaves(v)]
+    return [node]
+
+
+@pytest.mark.parametrize("arch", SERVED)
 def test_forward_prefill_then_decode_match_reference(arch):
     """Prefill logits and cache, then three decode steps' logits and
     caches (the RWKV state included), step for step."""

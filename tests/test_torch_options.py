@@ -49,6 +49,7 @@ from repro_torch.core.masks import ensure_coverage  # noqa: E402
 from repro_torch.hetero import controller as tctrl  # noqa: E402
 from repro_torch.hetero import cost as tcost  # noqa: E402
 from repro_torch.hetero import scenarios as tscen  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 
 KEY = jax.random.PRNGKey(3)
 TKEY = interop.key_from_numpy(np.asarray(KEY))
@@ -76,7 +77,8 @@ def carry_cost(c):
                if f.name not in ("compute_rate", "bandwidth", "pod_bw")}
     return interop.cost_from_arrays(
         {"compute_rate": np.asarray(c.compute_rate),
-         "bandwidth": np.asarray(c.bandwidth), "pod_bw": c.pod_bw},
+         "bandwidth": np.asarray(c.bandwidth),
+         "pod_bw": None if c.pod_bw is None else np.asarray(c.pod_bw)},
         statics, device="cpu")
 
 
@@ -730,8 +732,8 @@ def test_chol_rank1_update_matches_and_is_exact_algebra(n, alpha, seed):
     L = np.linalg.cholesky(np.cov(rng.normal(size=(n, 3 * n)))
                            + np.eye(n)).astype(np.float32)
     u = rng.normal(size=n).astype(np.float32)
-    got = tcomp.chol_rank1_update(torch.tensor(L), torch.tensor(u),
-                                  torch.tensor(np.float32(alpha))).numpy()
+    got = tref.chol_rank1_update(torch.tensor(L), torch.tensor(u),
+                                 torch.tensor(np.float32(alpha))).numpy()
     want = np.asarray(jcomp.chol_rank1_update(jnp.asarray(L), jnp.asarray(u),
                                               np.float32(alpha)))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
@@ -772,6 +774,12 @@ def test_hessian_rank_rejected_on_the_reference_engine():
 
 
 def test_cost_interop_refuses_pod_topology():
-    c = jcost.with_topology(jcost.uniform_cost(4), pod_bw=[1.0, 2.0])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        carry_cost(c)
+    """A pod topology, once refused (ROADMAP item 11), now carries
+    across; the overlap credit (item 12) is still refused."""
+    c = jcost.with_topology(jcost.uniform_cost(4), pod_bw=[1.0, 2.0],
+                            pod_latency=0.5)
+    got = carry_cost(c)
+    np.testing.assert_array_equal(got.pod_bw.numpy(), [1.0, 2.0])
+    assert got.pod_latency == 0.5
+    with pytest.raises(NotImplementedError, match="item 12"):
+        carry_cost(jcost.with_overlap_credit(c, 0.5))
