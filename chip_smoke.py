@@ -98,7 +98,22 @@ the card and times both, then drives the port's paths at full width:
    prefill (4, 1024, 24, 8, 128) in bf16 and K4 at rwkv6's (4, 1024, 40,
    64) in f32 and in bf16, the kernel forward and the plain twin's
    backward, against the twins' own gradients within the forward
-   tolerances (K4 in bf16: one bf16 step, ``BF16_STEP``).
+   tolerances (K4 in bf16: one bf16 step, ``BF16_STEP``);
+16. sharded: the 1-D sharded engine on ``torch.distributed`` (run after
+   hierarchy).  (a) NCCL at world size 1 in this process: the dense and
+   diag main paths, diag with ``overlap=True`` and dense with
+   ``compression="int8"`` on ``engine="sharded"`` with a ``("data",)``
+   mesh, each against the scan run of the same problem and key (integer
+   traces, comm_bytes and round_time equal, x¹ bit-equal, x² … x^T
+   within 2e-5 x max |x|, 5e-2 for int8; overlap bit-equal to the
+   sequential run; no kernel launched), and ``engine="batch"`` over 8
+   seeds with the mesh against the unsharded batch; (b) two ranks on
+   the one card over gloo (``torch.multiprocessing`` spawn): diag on
+   ``("data",) = 2`` and diag ``pods=2,period=3,gamma=0.5,
+   compression=int8`` on ``("pod", "data") = (2, 1)``, each against the
+   scan run within 2e-5 (5e-2 under the int8 exchange).  Every run's collective log passes the
+   engine's contract (``repro_torch.analysis``); ms per round beside
+   the scan run's.
 
 K1 and K2 are also held against their plain versions at the batch
 engine's (8, 32, 8192) and (8, 32, 4096), a ragged (3, 7, 513) and B = 1,
@@ -925,6 +940,312 @@ def hierarchy_batch(torch, rt, problem, spec, opts, launches, tol, report):
         f"{tuple(row['kernel_rows'])} once a round, launches {counts}; "
         f"rows equal their scan runs, xs_pods max |err| {worst:.3e}")
     return row
+
+
+# --------------------------------------------------------------------------
+# the 1-D sharded engine on torch.distributed
+# --------------------------------------------------------------------------
+
+def sharded_store(name):
+    """A fresh FileStore path under build/sharded/ beside this script."""
+    d = os.path.join(HERE, "build", "sharded")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, name)
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+@contextlib.contextmanager
+def loopback():
+    """GLOO_SOCKET_IFNAME / NCCL_SOCKET_IFNAME = lo for the sharded phase
+    only (the chip host has no network beyond loopback), put back after."""
+    names = ("GLOO_SOCKET_IFNAME", "NCCL_SOCKET_IFNAME")
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update({k: "lo" for k in names})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def contract_counts(rt, res, dim, label, **kw):
+    """Hold a sharded run's collective log to the engine's contract;
+    returns the counts: param-sized all-reduces matched per dimension
+    (and the units they cover), small in-loop and outside-loop ones."""
+    from repro_torch.analysis import check_log, engine_contract
+    opts = rt.RanlOptions(**kw)
+    rep = check_log(engine_contract("sharded", opts, dim=dim),
+                    res.collectives)
+    if not rep["ok"]:
+        raise AssertionError(f"{label}: collective log breaks the "
+                             f"contract: {rep['violations'][:3]}")
+    counts = {k: sum(v) if isinstance(v, list) else v
+              for k, v in rep["counts"].items()}
+    big = [c for c in res.collectives if c.round is not None
+           and c.op == "sum" and c.dtype != "int32"]
+    counts["param_wire"] = sorted({(c.dim, c.dtype, c.nbytes) for c in big})
+    return counts
+
+
+def sharded_vs_scan(torch, sh, scan, label, tol):
+    """A sharded run against the scan run of the same problem and key:
+    integer traces, comm_bytes, round_time and pod_bytes equal; x¹ bit-
+    equal (the same init code); x² … x^T within ``tol`` x max |x| (of
+    xs_pods under hierarchy).  Returns that largest gap."""
+    same_traces(torch, sh, scan, label)
+    if not torch.equal(sh.pod_bytes.cpu(), scan.pod_bytes.cpu()):
+        raise AssertionError(f"{label}: pod_bytes differ")
+    a, b = ((sh.xs_pods, scan.xs_pods) if scan.xs_pods is not None
+            else (sh.xs, scan.xs))
+    a, b = a.cpu(), b.cpu()
+    if not torch.equal(a[1], b[1]):
+        raise AssertionError(f"{label}: x1 differs from the scan run's")
+    err = ((a[2:] - b[2:]).abs().max() / b.abs().max()).item()
+    if not err <= tol:
+        raise AssertionError(f"{label}: x2..xT max |err| {err} x max |x| "
+                             f"> {tol}")
+    return err
+
+
+# leg (a): NCCL at world size 1 — (label, problem kind, options, xs
+# tolerance against the scan run: the CPU tests' 2e-5 for uncompressed
+# rounds; 5e-2, one int8 step, for int8, whose sharded run quantizes the
+# rank's partial sum where the scan run quantizes each worker's row)
+SHARDED_RUNS = (("dense", "dense", {}, 2e-5),
+                ("dense_int8", "dense", {"compression": "int8"}, 5e-2),
+                ("diag", "diag", {}, 2e-5),
+                ("diag_overlap", "diag", {"overlap": True}, 2e-5))
+# leg (b): two ranks on the one card over gloo — (label, mesh shape, mesh
+# dims, hierarchy, xs tolerance against the scan run: 2e-5, and 5e-2 under
+# the int8 exchange, one quantization step, as the hierarchy phase holds
+# it: the scan run's pod rounds sum through K2, in another order, and the
+# exchange quantizes what they give)
+SHARDED_RANK_RUNS = (("diag", (2,), ("data",), None, 2e-5),
+                     ("diag_hier_int8", (2, 1), ("pod", "data"),
+                      "pods=2,period=3,gamma=0.5,compression=int8", 5e-2))
+
+
+def sharded_world_of_one(torch, rt, report, launches):
+    """Leg (a): NCCL at world size 1 in this process (a FileStore under
+    build/sharded/, the group destroyed after).  Each run of
+    ``SHARDED_RUNS`` on engine="sharded" against the scan run of the same
+    problem and key; overlap bit-equal to the sequential run; then
+    engine="batch" over SEEDS keys with a ("data",) mesh against the
+    unsharded batch.  The sharded engine launches no kernel."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import prng
+    T, key = 30, prng.PRNGKey(1)
+    pol = rt.PolicyConfig(keep_prob=0.5, tau_star=1)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        sharded_store("nccl"), 1), rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        for kind in ("dense", "diag"):
+            problem = (dense_problem if kind == "dense" else diag_problem)(
+                torch, rt)
+            base = dict(num_rounds=T, num_regions=64, curvature=kind,
+                        policy=pol)
+            init_s = init_seconds(torch, lambda: rt.run(
+                problem, key, **{**base, "num_rounds": 0}))
+            # untimed: NCCL's first call, and each timed run's kernels
+            rt.run(problem, key, engine="sharded", mesh=mesh,
+                   **{**base, "num_rounds": 1})
+            for label, pk, kw, tol in SHARDED_RUNS:
+                if pk == kind:
+                    rt.run(problem, key, **{**base, **kw, "num_rounds": 1,
+                                            "overlap": False})
+            seq = None
+            for label, pk, kw, tol in SHARDED_RUNS:
+                if pk != kind:
+                    continue
+                opts = {**base, **kw}
+                scan_kw = {k: v for k, v in opts.items() if k != "overlap"}
+                scan, scan_s = sync_time(torch, lambda: rt.run(
+                    problem, key, **scan_kw))
+                sh, sh_s, counts = counted(torch, launches, lambda: rt.run(
+                    problem, key, engine="sharded", mesh=mesh, **opts))
+                check_finite(torch, sh)
+                if counts != ZERO:
+                    raise AssertionError(f"sharded {label}: the engine "
+                                         f"launched kernels {counts}")
+                err = sharded_vs_scan(torch, sh, scan,
+                                      f"sharded {label} vs scan", tol)
+                if kw.get("overlap"):
+                    for f in ("xs",) + INT_TRACES:
+                        if not torch.equal(getattr(sh, f), getattr(seq, f)):
+                            raise AssertionError(f"sharded {label}: {f} "
+                                                 f"differs from sequential")
+                elif not kw:
+                    seq = sh
+                cc = contract_counts(rt, sh, problem.dim, f"sharded {label}",
+                                     **opts)
+                out[label] = {
+                    "round_ms": (sh_s - init_s) / T * 1e3,
+                    "scan_round_ms": (scan_s - init_s) / T * 1e3,
+                    "init_s": init_s, "xs_vs_scan_max_rel": err,
+                    "xs_tol": tol, "launches": counts, "collectives": cc}
+                log(f"sharded (a) NCCL x1 {label}: {out[label]['round_ms']:.3f}"
+                    f" ms/round against {out[label]['scan_round_ms']:.3f} on "
+                    f"the scan engine ({report.get('nvidia_smi')}); traces "
+                    f"equal, x1 bit-equal, x2..xT {err:.3e} x max |x| (tol "
+                    f"{tol}); collectives {cc}")
+            if kind == "diag":
+                out["batch"] = sharded_batch(torch, rt, problem, mesh, base,
+                                             launches)
+            del problem
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def sharded_batch(torch, rt, problem, mesh, base, launches):
+    """engine="batch" over SEEDS keys with a ("data",) mesh against the
+    same batch without one: integer traces equal, xs within
+    BATCH_XS_RTOL x max |x|, one all-gather after the loop."""
+    from repro_torch import prng
+    T = base["num_rounds"]
+    keys = prng.split(prng.PRNGKey(1), SEEDS)
+    init_s = init_seconds(torch, lambda: rt.run(
+        problem, keys, engine="batch", **{**base, "num_rounds": 0}))
+    rt.run(problem, keys, engine="batch", **{**base, "num_rounds": 1})
+    plain, plain_s = sync_time(torch, lambda: rt.run(
+        problem, keys, engine="batch", **base))
+    res, secs, counts = main_path_run(torch, rt, problem, keys, launches,
+                                      engine="batch", mesh=mesh, **base)
+    for f in INT_TRACES + ("tau_star", "tau_covered"):
+        if not torch.equal(getattr(res, f), getattr(plain, f)):
+            raise AssertionError(f"sharded batch: {f} differs")
+    err = ((res.xs - plain.xs).abs().max() / plain.xs.abs().max()).item()
+    if not err <= BATCH_XS_RTOL:
+        raise AssertionError(f"sharded batch: xs max |err| {err} x max |x|")
+    if [(c.op, c.round) for c in res.collectives] != [("all_gather", None)]:
+        raise AssertionError(f"sharded batch collectives {res.collectives}")
+    row = {"seeds": SEEDS, "round_ms": (secs - init_s) / T * 1e3,
+           "unsharded_round_ms": (plain_s - init_s) / T * 1e3,
+           "xs_vs_unsharded_max_rel": err, "launches": counts}
+    log(f"sharded (a) batch: {SEEDS} seeds on a ('data',) mesh of 1, "
+        f"{row['round_ms']:.3f} ms/round against "
+        f"{row['unsharded_round_ms']:.3f} unsharded; traces equal, xs "
+        f"{err:.3e} x max |x|; one all-gather; launches {counts}")
+    return row
+
+
+def _sharded_rank(rank, store, out_dir):
+    """Leg (b)'s rank ``rank`` of 2, on the one card over gloo: each run
+    of ``SHARDED_RANK_RUNS`` on engine="sharded"; rank 0 then runs the
+    same on the scan engine.  Results, on the host, go to
+    ``out_dir/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    import repro_torch as rt
+    from repro_torch import prng
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    try:
+        problem = diag_problem(torch, rt)
+        key, T = prng.PRNGKey(1), 30
+        out = {}
+        for label, shape, dims, spec, _ in SHARDED_RANK_RUNS:
+            mesh = init_device_mesh("cuda", shape, mesh_dim_names=dims)
+            opts = dict(num_rounds=T, num_regions=64, curvature="diag",
+                        policy=rt.PolicyConfig(keep_prob=0.5, tau_star=1),
+                        hierarchy=spec)
+            init_s = init_seconds(torch, lambda: rt.run(
+                problem, key, **{**opts, "num_rounds": 0}))
+            if rank == 0:                   # untimed: the scan's kernels
+                rt.run(problem, key, **{**opts, "num_rounds": 3})
+            dist.barrier()
+            res, secs = sync_time(torch, lambda: rt.run(
+                problem, key, engine="sharded", mesh=mesh, **opts))
+            row = {"result": on_host(res), "seconds": secs, "init_s": init_s}
+            if rank == 0:
+                scan, row["scan_seconds"] = sync_time(
+                    torch, lambda: rt.run(problem, key, **opts))
+                row["scan"] = on_host(scan)
+            dist.barrier()
+            out[label] = row
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_two_ranks(torch, rt, report):
+    """Leg (b): two ranks on the one card (NCCL refuses two ranks on one
+    GPU, so gloo carries CUDA tensors), started with
+    ``torch.multiprocessing`` spawn and joined within 600 s.  Each run
+    held to the scan run within its tolerance (``SHARDED_RANK_RUNS``),
+    both ranks' results equal, both logs within the contract."""
+    import torch.multiprocessing as mp
+    out_dir = os.path.dirname(sharded_store("gloo"))
+    for r in (0, 1):
+        if os.path.exists(os.path.join(out_dir, f"rank{r}.pt")):
+            os.remove(os.path.join(out_dir, f"rank{r}.pt"))
+    ctx = mp.start_processes(_sharded_rank, args=(
+        os.path.join(out_dir, "gloo"), out_dir), nprocs=2, join=False,
+        start_method="spawn")
+    deadline = time.time() + 600
+    while not ctx.join(timeout=5):
+        if time.time() > deadline:
+            for p in ctx.processes:
+                p.terminate()
+            raise AssertionError("the two sharded ranks did not finish in "
+                                 "600 s")
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in (0, 1)]
+    out = {}
+    for label, shape, dims, spec, tol in SHARDED_RANK_RUNS:
+        a, b = ranks[0][label], ranks[1][label]
+        for f in ("xs", "xs_pods") + INT_TRACES:
+            x, y = getattr(a["result"], f), getattr(b["result"], f)
+            if x is not None and not torch.equal(x, y):
+                raise AssertionError(f"sharded (b) {label}: ranks differ "
+                                     f"in {f}")
+        err = sharded_vs_scan(torch, a["result"], a["scan"],
+                              f"sharded (b) {label} vs scan", tol)
+        T = a["result"].coverage.shape[0]
+        kw = dict(num_rounds=T, num_regions=64, hierarchy=spec)
+        cc = [contract_counts(rt, r[label]["result"],
+                              a["result"].xs.shape[-1],
+                              f"sharded (b) {label} rank {i}", **kw)
+              for i, r in enumerate(ranks)]
+        out[label] = {
+            "mesh": dict(zip(dims, shape)),
+            "round_ms": [(r[label]["seconds"] - r[label]["init_s"]) / T * 1e3
+                         for r in ranks],
+            "scan_round_ms": (a["scan_seconds"] - a["init_s"]) / T * 1e3,
+            "xs_vs_scan_max_rel": err, "xs_tol": tol,
+            "collectives": cc[0]}
+        log(f"sharded (b) gloo x2 on one card {label} {out[label]['mesh']}: "
+            f"{out[label]['round_ms'][0]:.3f} / "
+            f"{out[label]['round_ms'][1]:.3f} ms/round (ranks 0 / 1) "
+            f"against {out[label]['scan_round_ms']:.3f} on the scan engine "
+            f"({report.get('nvidia_smi')}); ranks equal, traces equal the "
+            f"scan run's, x2..xT {err:.3e} x max |x| (tol {tol}); "
+            f"collectives {cc[0]}")
+    return out
+
+
+def phase_sharded(torch, rt, report, launches):
+    """The 1-D sharded engine: leg (a), NCCL at world size 1 in this
+    process; leg (b), two ranks on the card over gloo."""
+    with loopback():
+        a = sharded_world_of_one(torch, rt, report, launches)
+        b = sharded_two_ranks(torch, rt, report)
+    report["sharded"] = {**{f"nccl_x1_{k}": v for k, v in a.items()},
+                         **{f"gloo_x2_{k}": v for k, v in b.items()}}
 
 
 @contextlib.contextmanager
@@ -1817,6 +2138,7 @@ def main(argv=None) -> int:
         f"CUDA {torch.version.cuda}")
     log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
         else f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else None
 
     if args.consistent_seeds:
         consistent_readings(torch, args.consistent_seeds)
@@ -1824,7 +2146,7 @@ def main(argv=None) -> int:
     if args.loop_init:
         loop_init(torch, rt)
         return 0
-    report = {}
+    report = {"nvidia_smi": card}
     launches = dict(ZERO)
     failed = []
     t_all = time.time()
@@ -1842,6 +2164,7 @@ def main(argv=None) -> int:
             ("options", lambda: phase_options(torch, rt, report, launches)),
             ("hierarchy", lambda: phase_hierarchy(torch, rt, report,
                                                   launches)),
+            ("sharded", lambda: phase_sharded(torch, rt, report, launches)),
             ("lowrank_init", lambda: phase_lowrank(torch, rt, report,
                                                    launches)),
             ("train_grad", lambda: phase_train_grad(torch, report)),

@@ -9,7 +9,12 @@ reference's ``repro.run``, plus the port's own rules:
 
 * the run happens on ``device`` (``None`` = the CUDA card, raising when
   there is none; ``"cpu"`` is the explicit opt-in), and the problem's
-  tensors must already be there — nothing moves silently;
+  tensors, the cost model's and the mesh's device type must already be
+  there — nothing moves silently;
+* ``engine="sharded"`` (and a seed-sharded ``"batch"``) take a
+  ``torch.distributed.device_mesh.DeviceMesh`` with named dimensions
+  (``("data",)``, or ``("pod", "data")`` under ``hierarchy``); every rank
+  calls ``run`` with the same arguments (``core.sharded``);
 * engines and options whose port is still to come raise
   ``NotImplementedError`` naming the ROADMAP item that brings them; the
   run never falls back to something else.
@@ -21,16 +26,16 @@ from . import prng
 from .core.options import RanlOptions
 from .core.ranl import RanlResult, _run_batch, _run_reference, \
     _run_scan  # noqa: F401
+from .core.sharded import _run_batch_sharded, _run_sharded
 from .device import resolve_device
 
 ENGINES = ("scan", "batch", "sharded", "sharded2d", "reference")
+_MESH_REQUIRED = ("sharded", "sharded2d")
+_MESH_FORBIDDEN = ("scan", "reference")
 
 # what is not ported yet -> the ROADMAP (Queue 1) item that ports it
 _NOT_YET = {
-    "sharded": "item 12 (1-D sharded engine)",
     "sharded2d": "item 13 (2-D engine)",
-    "mesh": "item 12 (the batch engine's seed sharding over a mesh)",
-    "overlap": "item 12 (overlapped sharded rounds)",
     "journal": "item 15 (observability)",
 }
 
@@ -58,14 +63,20 @@ def _resolve(engine, options, mesh, controller, overrides):
         raise TypeError(f"options must be a RanlOptions, got {opts!r}")
     if overrides:
         opts = opts.merged(**overrides)
-    if mesh is not None:
-        if engine == "batch":
-            raise _not_yet("mesh", "=")
+    if engine in _MESH_REQUIRED and mesh is None:
+        raise ValueError(f"engine {engine!r} needs a mesh= argument")
+    if engine in _MESH_FORBIDDEN and mesh is not None:
         raise ValueError(f"engine {engine!r} takes no mesh — use "
                          f"'sharded'/'sharded2d' (or 'batch' to shard "
                          f"seeds)")
-    if opts.overlap:
-        raise _not_yet("overlap", f"={opts.overlap!r}")
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed.device_mesh"
+                            f".DeviceMesh, got {mesh!r}")
+    if opts.overlap and engine not in _MESH_REQUIRED:
+        raise ValueError(f"overlap=True only exists on the sharded "
+                         f"engines, not {engine!r}")
     if engine == "reference":
         if opts.curvature != "dense":
             raise ValueError("the reference engine is the dense-eigh "
@@ -99,8 +110,12 @@ def _resolve(engine, options, mesh, controller, overrides):
     return opts, controller
 
 
-def _check_device(problem, device, cost):
+def _check_device(problem, device, cost, mesh):
     dev = resolve_device(device)
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(
+            f"the mesh is on {mesh.device_type!r}, the run asks for {dev}; "
+            f"build the mesh with init_device_mesh({dev.type!r}, ...)")
     held = [("problem", t) for t in problem.tensors()]
     if cost is not None:
         held += [("cost model", cost.compute_rate),
@@ -128,24 +143,30 @@ def run(problem, key, *, engine: str = "scan",
     axis.  ``controller``: a controller object, a ``make_controller``
     spec string or ``None`` (the options' policy); ``cost``: a
     ``CostModel`` on the problem's device or ``None`` (uniform).
-    ``axis_name``, ``data_axis``, ``model_axis`` and ``pod_axis`` name
-    mesh axes, which only the sharded engines and a sharded batch read:
-    the one-card engines take no mesh and ignore them, as the
-    reference's do.  ``scenario`` labels the journal and is ignored
-    without one.  ``**overrides`` are ``RanlOptions`` fields merged into
-    ``options``.
+    ``mesh``: a ``DeviceMesh`` on the run's device type, for
+    ``engine="sharded"`` (required) or to shard a batch's seeds;
+    ``axis_name`` names its worker (or seed) dimension and ``pod_axis``
+    its pod dimension; ``data_axis`` and ``model_axis`` belong to the 2-D
+    engine, not ported yet.  The one-card engines take no mesh and
+    ignore the axis names, as the reference's do.  ``scenario`` labels
+    the journal and is ignored without one.  ``**overrides`` are
+    ``RanlOptions`` fields merged into ``options``.
     """
-    del axis_name, data_axis, model_axis, pod_axis, scenario
+    del data_axis, model_axis, scenario
     opts, controller = _resolve(engine, options, mesh, controller,
                                 overrides)
     if journal is not None:
         raise _not_yet("journal", "=")
-    _check_device(problem, device, cost)
+    _check_device(problem, device, cost, mesh)
     key = prng.as_key(key)
     if engine == "batch":
         if key.ndim != 2 or key.shape[0] < 1:
             raise ValueError(f"engine 'batch' takes stacked keys of shape "
                              f"(B, 2), got {key.shape}")
+        if mesh is not None:
+            return _run_batch_sharded(problem, key, opts, mesh=mesh,
+                                      axis_name=axis_name,
+                                      controller=controller, cost=cost)
         return _run_batch(problem, key, opts, controller=controller,
                           cost=cost)
     if key.shape != (2,):
@@ -154,5 +175,9 @@ def run(problem, key, *, engine: str = "scan",
     if engine == "scan":
         return _run_scan(problem, key, opts, controller=controller,
                          cost=cost)
+    if engine == "sharded":
+        return _run_sharded(problem, key, opts, mesh=mesh,
+                            axis_name=axis_name, pod_axis=pod_axis,
+                            controller=controller, cost=cost)
     return _run_reference(problem, key, opts, controller=controller,
                           cost=cost)

@@ -12,6 +12,8 @@
   gradient memory C stays exact (it is server state, not wire traffic);
 * ``pod_sum_compressed``: the hierarchical runs' inter-pod exchange,
   one compressed sum over a pod axis with its own error feedback;
+* ``psum_compressed``: the sharded engine's compressed all-reduce of each
+  rank's partial sum over a mesh dimension (int8 on the wire);
 * ``uplink_bytes``: the metered bytes on the wire (4 a coordinate
   uncompressed, 1 plus a 4-byte scale for int8, 2 for bf16, for top-k
   the k largest trained regions plus 4 bytes of metadata each);
@@ -102,6 +104,41 @@ def compress_rows(comp: CompressionSpec | None, Y, region_ids,
         return Y.to(torch.bfloat16).to(Y.dtype)
     keep = _topk_region_mask(Y * Y, region_ids, num_regions, comp.k)
     return torch.where(keep, Y, torch.zeros_like(Y))
+
+
+def psum_compressed(comp: CompressionSpec, y, err, *, coll, dim: str,
+                    n_agg: int, region_ids, num_regions: int,
+                    async_op: bool = False):
+    """Compressed all-reduce of this rank's partial sum ``y`` (d,) over
+    the mesh dimension ``dim`` of the recorder ``coll``
+    (``core.collectives``), under the rank's error feedback ``err``.
+    Sends ``C(y + err)``; returns (a ``Pending`` of the decoded sum,
+    ``(y + err) − C(y + err)``).
+
+    int8: one scale shared by the ``n_agg`` ranks (a scalar MAX
+    all-reduce of |y|), each rank clipped to ±(127 // n_agg) levels, so
+    the integers summed in the int8 all-reduce — one byte a coordinate
+    on the wire — cannot wrap.  bf16: the bfloat16-rounded payload,
+    summed in float32 as the reference's compiled program sums it (its
+    CPU program all-reduces an f32 operand); the metered uplink stays 2
+    bytes a coordinate (``uplink_bytes``).  top-k: the ``k`` regions of
+    highest energy of the partial sum, the rest to the residual.  Only
+    the payload's all-reduce honours ``async_op``."""
+    y = y + err
+    if comp.kind == "int8":
+        scale = coll.all_reduce(y.abs().amax(), dim, "max").wait()
+        cap = max(127 // max(int(n_agg), 1), 1)
+        step = torch.clamp_min(scale, _EPS) / cap
+        q = torch.clamp(torch.round(y / step), -cap, cap)
+        pending = coll.all_reduce(q.to(torch.int8), dim, async_op=async_op,
+                                  then=lambda s: s.to(y.dtype) * step)
+        return pending, y - q * step
+    if comp.kind == "bf16":
+        sent = y.to(torch.bfloat16).to(y.dtype)
+    else:
+        keep = _topk_region_mask(y * y, region_ids, num_regions, comp.k)
+        sent = torch.where(keep, y, torch.zeros_like(y))
+    return coll.all_reduce(sent.clone(), dim, async_op=async_op), y - sent
 
 
 def pod_sum_compressed(comp: CompressionSpec, y, err):

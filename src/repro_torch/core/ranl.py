@@ -90,6 +90,8 @@ class RanlResult:
                                       # runs without a pod topology)
     xs_pods: torch.Tensor = None      # (T+2, P, d) pod iterates of
                                       # hierarchical runs (xs is their mean)
+    collectives: tuple = ()           # the run's collective log
+                                      # (core.collectives; sharded runs)
     # batched runs carry a leading seed axis (B, ...) on every array
 
 
@@ -159,15 +161,17 @@ def _round_diagnostics(covered_q, count_q, n_workers: int):
                         torch.full_like(count_q, n_workers)).amin(dim=dims))
 
 
-def _trace_row(Mx, count_pq, round_t, telem, ubytes, n_workers: int,
+def _trace_row(work, count_pq, round_t, telem, ubytes, n_workers: int,
                pbytes=None):
     """One round's device-side trace entries, each (...,) over seeds:
     (coverage, comm_floats, min_count, min_covered_count, round_time,
-    max_stale, comm_bytes, pod_bytes).  ``count_pq`` (..., P, Q): each
-    pod's coverage counts, of ``n_workers`` workers each (P = 1: flat)."""
+    max_stale, comm_bytes, pod_bytes).  ``work`` (..., N): each worker's
+    trained coordinates (their sum is the round's uplink floats);
+    ``count_pq`` (..., P, Q): each pod's coverage counts, of
+    ``n_workers`` workers each (P = 1: flat)."""
     cov_mean, min_count, min_cov_count = _round_diagnostics(
         count_pq > 0, count_pq, n_workers)
-    return (cov_mean, Mx.sum(dim=(-2, -1)).to(torch.int32), min_count,
+    return (cov_mean, work.sum(dim=-1).to(torch.int32), min_count,
             min_cov_count, round_t, telem.stale_q.amax(dim=-1),
             ubytes.sum(dim=-1), torch.zeros_like(round_t)
             if pbytes is None else pbytes)
@@ -208,15 +212,17 @@ def _controller_mask(controller, cost, ctrl_state, telem, kt, t: int,
     return M, ctrl_state
 
 
-def _clock(cost, M, sizes_q, ubytes, t: int, qspec, pods: int = 1):
+def _clock(cost, M, sizes_q, ubytes, t: int, qspec, pods: int = 1,
+           overlap: bool = False):
     """The round's simulated clock: (work, times, round_time, on_time,
     delays).  Synchronous rounds end at the slowest participant; quorum
     rounds at the latest of the ``pods`` pods' quorum deadlines (each
     pod's split over its own workers), with each worker's on-time flag
-    and delay (None for synchronous rounds)."""
+    and delay (None for synchronous rounds).  ``overlap``: the pipelined
+    rounds' clock (``worker_times``)."""
     from ..hetero.cost import quorum_split, worker_times
     work = (M * sizes_q).sum(dim=-1).to(torch.int32)
-    times = worker_times(cost, work, t, ubytes)
+    times = worker_times(cost, work, t, ubytes, overlap=overlap)
     if qspec is None:
         return work, times, times.amax(dim=-1), None, None
     deadline, on_time, delays = quorum_split(
@@ -426,8 +432,8 @@ def _scan_rounds(problem, k_loop, x1, C0, chol, hdiag, cost, *,
         pbytes = None
         if charge is not None and (exchange is None or exchanged):
             round_t, pbytes = round_t + charge[0], charge[1]
-        rows.append(_trace_row(Mx, count_pq, round_t, telem, ubytes, n_pod,
-                               pbytes))
+        rows.append(_trace_row(work, count_pq, round_t, telem, ubytes,
+                               n_pod, pbytes))
     xs_pods = torch.stack(xs, dim=1)                     # (B, T+2, P, d)
     xs = xs_pods[:, :, 0] if hspec is None else xs_pods.sum(dim=2) / P
     dist = ((xs - problem.x_star) ** 2).sum(dim=-1)
@@ -591,7 +597,7 @@ def _reference_program(problem, key, cost, *, opts: RanlOptions,
         count_pq, telem = _observe(telem, M, on_time, work, times)
         x = x - lr * solve_projected(H_mu, g)
         xs.append(x)
-        rows.append(_trace_row(Mx, count_pq, round_t, telem, ubytes, N))
+        rows.append(_trace_row(work, count_pq, round_t, telem, ubytes, N))
     return (torch.stack(xs), *_stack_rows(rows, (), dev)[:-1])
 
 

@@ -26,6 +26,7 @@ from .cost import (  # noqa: F401
     time_to_target,
     uniform_cost,
     with_availability,
+    with_overlap_credit,
     with_topology,
     worker_times,
 )

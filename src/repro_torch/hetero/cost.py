@@ -11,8 +11,9 @@ the round commits at the k-th order statistic of participant times.
 Every function broadcasts over a leading seed axis of its per-round
 inputs (keys ``(..., 2)``, work and masks ``(..., N)``/``(..., N, Q)``).
 A pod topology (``with_topology``) prices the inter-pod links:
-``pod_exchange_time`` is what one crossing costs.  The overlap credit
-arrives with ROADMAP Queue 1 item 12.
+``pod_exchange_time`` is what one crossing costs.  An overlap credit
+(``with_overlap_credit``) is what the sharded engine's pipelined rounds
+(``overlap=True``) hide of each worker's time.
 """
 
 from __future__ import annotations
@@ -42,7 +43,11 @@ class CostModel:
     (P,) inter-pod uplink BYTES per time unit; an exchange of ``nbytes``
     across the pods costs ``pod_latency + nbytes / min(pod_bw)``.  Flat
     runs on such a topology pay it every round, hierarchical runs only
-    on exchange rounds."""
+    on exchange rounds.
+
+    ``overlap_credit`` in [0, 1] is the fraction of ``min(compute,
+    comm)`` a pipelined (``overlap=True``) round hides by overlapping
+    the two (see ``worker_times``)."""
     compute_rate: torch.Tensor    # (N,)
     bandwidth: torch.Tensor       # (N,)
     overhead: float = 0.0
@@ -53,6 +58,7 @@ class CostModel:
     diurnal_amplitude: float = 0.0
     pod_bw: torch.Tensor | None = None   # (P,)
     pod_latency: float = 0.0
+    overlap_credit: float = 0.0
 
     @property
     def num_workers(self) -> int:
@@ -117,6 +123,14 @@ def with_topology(cost: CostModel, *, pod_bw,
         pod_latency=float(pod_latency))
 
 
+def with_overlap_credit(cost: CostModel, credit: float) -> CostModel:
+    """Set the comm/compute overlap credit (see ``worker_times``)."""
+    credit = float(credit)
+    if not 0.0 <= credit <= 1.0:
+        raise ValueError(f"overlap_credit={credit} must be in [0, 1]")
+    return replace(cost, overlap_credit=credit)
+
+
 def pod_exchange_time(cost: CostModel, nbytes: float) -> torch.Tensor:
     """Simulated time (a 0-d f32 tensor) for ``nbytes`` to cross the
     inter-pod links: 0 without a topology."""
@@ -155,21 +169,28 @@ def capacity(cost: CostModel, t: int) -> torch.Tensor:
     return torch.clamp_min(1.0 + cost.diurnal_amplitude * wave, 0.05)
 
 
-def worker_times(cost: CostModel, work, t: int,
-                 uplink_bytes=None) -> torch.Tensor:
+def worker_times(cost: CostModel, work, t: int, uplink_bytes=None, *,
+                 overlap: bool = False) -> torch.Tensor:
     """(..., N) simulated time per worker for a round; workers with no
-    work cost nothing.  ``uplink_bytes`` None = 4 bytes per coordinate."""
+    work cost nothing.  ``uplink_bytes`` None = 4 bytes per coordinate.
+    ``overlap=True`` takes the cost model's ``overlap_credit`` off: a
+    pipelined round hides ``credit · min(compute, comm)`` of each
+    worker's time (full overlap hides the shorter phase, never both)."""
     work = work.to(_F32)
     if uplink_bytes is None:
         uplink_bytes = 4.0 * work
     rate = cost.compute_rate * capacity(cost, t)
-    per = cost.overhead + work / rate + uplink_bytes.to(_F32) / cost.bandwidth
+    compute = work / rate
+    comm = uplink_bytes.to(_F32) / cost.bandwidth
+    per = cost.overhead + compute + comm
+    if overlap and cost.overlap_credit > 0.0:
+        per = per - cost.overlap_credit * torch.minimum(compute, comm)
     return torch.where(work > 0, per, torch.zeros_like(per))
 
 
-def round_time(cost: CostModel, work, t: int):
+def round_time(cost: CostModel, work, t: int, *, overlap: bool = False):
     """Scalar simulated wall-clock of one synchronous round."""
-    return worker_times(cost, work, t).max()
+    return worker_times(cost, work, t, overlap=overlap).max()
 
 
 def quorum_deadline(times, masks, *, quorum: float,

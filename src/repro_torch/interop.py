@@ -41,7 +41,8 @@ def problem_from_arrays(kind: str, arrays: dict, scalars: dict,
 
 
 _COST_STATICS = ("overhead", "dropout_prob", "churn_period", "churn_cohorts",
-                 "diurnal_period", "diurnal_amplitude", "pod_latency")
+                 "diurnal_period", "diurnal_amplitude", "pod_latency",
+                 "overlap_credit")
 
 
 def cost_from_arrays(arrays: dict, statics: dict, device=None):
@@ -50,12 +51,9 @@ def cost_from_arrays(arrays: dict, statics: dict, device=None):
     ``arrays``: ``compute_rate``, ``bandwidth`` and ``pod_bw`` (None
     without a pod topology); ``statics``: the scalar fields
     (``overhead``, ``dropout_prob``, ``churn_period``, ``churn_cohorts``,
-    ``diurnal_period``, ``diurnal_amplitude``, ``pod_latency``, and
-    ``overlap_credit``, which must be 0)."""
+    ``diurnal_period``, ``diurnal_amplitude``, ``pod_latency`` and
+    ``overlap_credit``)."""
     from .hetero.cost import CostModel
-    if statics.get("overlap_credit", 0.0):
-        raise NotImplementedError(
-            "overlap_credit is not ported yet: ROADMAP Queue 1 item 12")
     dev = resolve_device(device)
 
     def f32(a):

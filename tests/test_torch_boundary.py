@@ -1,7 +1,7 @@
 """The port's package boundary: it never imports the reference package or
 its framework, it runs with them made unimportable, its entry points
-refuse to fall back to the CPU, and options whose port is still to come
-raise NotImplementedError."""
+refuse to fall back to the CPU, options whose port is still to come
+raise NotImplementedError, and dispatch raises the reference's errors."""
 
 import ast
 import importlib
@@ -126,14 +126,29 @@ def test_run_refuses_a_cost_model_on_another_device():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(engine="sharded"), dict(engine="sharded2d"), dict(overlap=True),
-    dict(journal="run.jsonl"),
+    dict(engine="sharded2d"), dict(journal="run.jsonl"),
     dict(journal="run.jsonl", scenario="geo-distributed")],
     ids=str)
 def test_options_outside_the_slice_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         repro_torch.run(_small(), prng.PRNGKey(1), device="cpu",
                         num_rounds=1, num_regions=2, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(engine="sharded"), dict(overlap=True),
+    dict(engine="batch", overlap=True),
+    dict(engine="reference", overlap=True)], ids=str)
+def test_sharded_options_raise_the_references_value_errors(kw):
+    """Once NotImplementedError (ROADMAP item 12, now ported): the
+    sharded engine needs a mesh, and ``overlap`` exists only on the
+    sharded engines (``src/repro/api.py:78-84``)."""
+    key = prng.PRNGKey(1)
+    if kw.get("engine") == "batch":
+        key = prng.split(key, 2)
+    with pytest.raises(ValueError, match="mesh|overlap"):
+        repro_torch.run(_small(), key, device="cpu", num_rounds=1,
+                        num_regions=2, **kw)
 
 
 @pytest.mark.parametrize("kw", [
@@ -187,14 +202,72 @@ def test_dispatch_checks_match_the_reference(kw, err):
                         num_rounds=1, num_regions=2, **kw)
 
 
-def test_batch_engine_with_a_mesh_is_not_ported_yet():
-    """The reference's batch engine shards seeds over a mesh; the port's
-    raises NotImplementedError naming ROADMAP item 12, not the
-    ValueError of a mesh given to a one-device engine."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        repro_torch.run(_small(), prng.split(prng.PRNGKey(1), 2),
-                        engine="batch", mesh="mesh", device="cpu",
-                        num_rounds=1, num_regions=2)
+@pytest.mark.parametrize("engine", ["batch", "sharded"])
+def test_a_mesh_that_is_not_a_device_mesh_is_refused(engine):
+    """The batch engine shards seeds and the sharded engine workers over
+    a ``torch.distributed.device_mesh.DeviceMesh``; anything else is
+    refused before a run starts (tests/test_torch_sharded.py runs
+    both on real meshes)."""
+    key = prng.PRNGKey(1)
+    if engine == "batch":
+        key = prng.split(key, 2)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        repro_torch.run(_small(), key, engine=engine, mesh="mesh",
+                        device="cpu", num_rounds=1, num_regions=2)
+
+
+def _overlap_costs(jax):
+    """(reference cost, port cost): Pareto rates on a finite-bandwidth
+    cluster with an overlap credit, carried across as arrays."""
+    jcost = pytest.importorskip("repro.hetero.cost")
+    from repro_torch import interop
+    want = jcost.with_overlap_credit(jcost.pareto_cost(
+        jax.random.PRNGKey(3), 6, bandwidth=50.0), 0.4)
+    statics = {f: getattr(want, f) for f in (
+        "overhead", "dropout_prob", "churn_period", "churn_cohorts",
+        "diurnal_period", "diurnal_amplitude", "pod_latency",
+        "overlap_credit")}
+    got = interop.cost_from_arrays(
+        {"compute_rate": np.asarray(want.compute_rate),
+         "bandwidth": np.asarray(want.bandwidth), "pod_bw": None},
+        statics, device="cpu")
+    return jcost, want, got
+
+
+def test_cost_from_arrays_carries_the_overlap_credit():
+    """``interop.cost_from_arrays`` once refused an ``overlap_credit``
+    (ROADMAP item 12); it carries it across, and
+    ``with_overlap_credit`` checks the range as the reference does."""
+    jax = pytest.importorskip("jax")
+    from repro_torch.hetero import with_overlap_credit
+    _, want, got = _overlap_costs(jax)
+    assert got.overlap_credit == want.overlap_credit == 0.4
+    np.testing.assert_array_equal(got.compute_rate.numpy(),
+                                  np.asarray(want.compute_rate))
+    with pytest.raises(ValueError, match="overlap_credit"):
+        with_overlap_credit(got, 1.5)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_worker_times_with_overlap_match_the_reference(overlap):
+    jax = pytest.importorskip("jax")
+    from repro_torch.hetero import round_time, worker_times
+    jcost, want, got = _overlap_costs(jax)
+    work = np.array([0, 10, 40, 7, 25, 3], np.int32)
+    ubytes = np.array([0.0, 40.0, 8.0, 28.0, 100.0, 12.0], np.float32)
+    ref = np.asarray(jcost.worker_times(want, work, 3, ubytes,
+                                        overlap=overlap))
+    port = worker_times(got, torch.tensor(work), 3, torch.tensor(ubytes),
+                        overlap=overlap)
+    np.testing.assert_allclose(port.numpy(), ref, rtol=1e-6)
+    assert ref[0] == 0.0
+    np.testing.assert_allclose(
+        round_time(got, torch.tensor(work), 3, overlap=overlap).item(),
+        float(jcost.round_time(want, work, 3, overlap=overlap)), rtol=1e-6)
+    if overlap:
+        plain = worker_times(got, torch.tensor(work), 3,
+                             torch.tensor(ubytes))
+        assert bool((port[1:] < plain[1:]).all())
 
 
 @pytest.mark.parametrize("engine", ["scan", "batch", "reference"])

@@ -1019,3 +1019,138 @@ def test_hierarchical_run_on_card_matches_host(cuda, curvature, spec):
     scale = float(want.xs_pods.abs().max())
     assert float((got.xs_pods.cpu() - want.xs_pods).abs().max()) <= \
         tol * scale
+
+
+# --------------------------------------------------------------------------
+# the 1-D sharded engine on the card: NCCL at world size 1, and two ranks
+# on the one card over gloo (NCCL refuses two ranks on one GPU)
+# --------------------------------------------------------------------------
+
+def _on_card_problem(curvature, device):
+    import repro_torch
+    from repro_torch import prng
+    if curvature == "dense":
+        return repro_torch.make_quadratic(prng.PRNGKey(0), num_workers=8,
+                                          dim=48, kappa=50.0, coupling=0.0,
+                                          num_regions=6, grad_noise=0.1,
+                                          device=device)
+    return repro_torch.make_logistic(prng.PRNGKey(0), num_workers=8,
+                                     per_worker=64, dim=48, device=device)
+
+
+def _sharded_like_scan(sh, scan, tol):
+    """Integer traces, clock and pod bytes equal; x¹ bit-equal (the same
+    init); x² … x^T within ``tol`` x max |x|."""
+    for f in ("coverage", "comm_floats", "comm_bytes", "max_stale",
+              "round_time", "pod_bytes"):
+        assert torch.equal(getattr(sh, f).cpu(), getattr(scan, f).cpu()), f
+    assert (sh.tau_star, sh.tau_covered) == (scan.tau_star,
+                                             scan.tau_covered)
+    a, b = ((sh.xs_pods, scan.xs_pods) if scan.xs_pods is not None
+            else (sh.xs, scan.xs))
+    a, b = a.cpu(), b.cpu()
+    assert torch.equal(a[1], b[1])
+    assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curvature", ["dense", "diag"])
+def test_sharded_engine_on_nccl_at_world_size_one(cuda, tmp_path,
+                                                  monkeypatch, curvature):
+    """engine="sharded" on a ("data",) mesh of one card over NCCL: the
+    scan run's traces, xs within 2e-5·max|x|, no kernel launched, the
+    overlapped loop bit-equal, the log within the contract."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch
+    from repro_torch import prng
+    from repro_torch.analysis import check_log, engine_contract
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        p = _on_card_problem(curvature, cuda)
+        opts = repro_torch.RanlOptions(num_rounds=6, num_regions=6,
+                                       curvature=curvature)
+        before = dict(LAUNCHES)
+        sh = repro_torch.run(p, prng.PRNGKey(1), engine="sharded",
+                             mesh=mesh, options=opts)
+        assert LAUNCHES == before
+        ov = repro_torch.run(p, prng.PRNGKey(1), engine="sharded",
+                             mesh=mesh, options=opts, overlap=True)
+        assert torch.equal(ov.xs, sh.xs)
+        _sharded_like_scan(sh, repro_torch.run(p, prng.PRNGKey(1),
+                                               options=opts), 2e-5)
+        rep = check_log(engine_contract("sharded", opts, dim=48),
+                        sh.collectives)
+        assert rep["ok"], rep["violations"]
+    finally:
+        dist.destroy_process_group()
+
+
+_TWO_RANKS = """
+import dataclasses, sys
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+import repro_torch as rt
+from repro_torch import prng
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank,
+                        world_size=2)
+p = rt.make_logistic(prng.PRNGKey(0), num_workers=8, per_worker=64, dim=48,
+                     device="cuda")
+res = {}
+for label, shape, dims, spec in (
+        ("flat", (2,), ("data",), None),
+        ("hier", (2, 1), ("pod", "data"), "pods=2,period=3,compression=int8")):
+    mesh = init_device_mesh("cuda", shape, mesh_dim_names=dims)
+    r = rt.run(p, prng.PRNGKey(1), engine="sharded", mesh=mesh,
+               curvature="diag", num_rounds=6, num_regions=6, hierarchy=spec)
+    res[label] = dataclasses.replace(r, **{
+        f.name: getattr(r, f.name).cpu() for f in dataclasses.fields(r)
+        if isinstance(getattr(r, f.name), torch.Tensor)})
+torch.save(res, f"{out}.{rank}")
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.gpu
+def test_sharded_engine_two_ranks_on_one_card_over_gloo(cuda, tmp_path):
+    """Two processes on the one card, gloo carrying CUDA tensors: diag on
+    ("data",) = 2 and with an int8 pod exchange on ("pod", "data") =
+    (2, 1); both ranks return the same result, equal to the scan run on
+    the card within 2e-5·max|x| (5e-2 under the int8 exchange, one
+    quantization step)."""
+    import os
+    import subprocess
+    import sys
+
+    import repro_torch
+    from repro_torch import prng
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "ranks.py"
+    script.write_text(_TWO_RANKS)
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen([sys.executable, str(script), str(r),
+                               str(tmp_path / "store"), str(tmp_path / "out")],
+                              env=env, stderr=subprocess.PIPE, text=True)
+             for r in (0, 1)]
+    for proc in procs:
+        _, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err[-3000:]
+    got = [torch.load(f"{tmp_path / 'out'}.{r}", weights_only=False)
+           for r in (0, 1)]
+    p = _on_card_problem("diag", cuda)
+    for label, spec, tol in (("flat", None, 2e-5),
+                             ("hier", "pods=2,period=3,compression=int8",
+                              5e-2)):
+        assert torch.equal(got[0][label].xs, got[1][label].xs)
+        scan = repro_torch.run(p, prng.PRNGKey(1), curvature="diag",
+                               num_rounds=6, num_regions=6, hierarchy=spec)
+        _sharded_like_scan(got[0][label], scan, tol)

@@ -775,11 +775,11 @@ def test_hessian_rank_rejected_on_the_reference_engine():
 
 def test_cost_interop_refuses_pod_topology():
     """A pod topology, once refused (ROADMAP item 11), now carries
-    across; the overlap credit (item 12) is still refused."""
+    across; so does the overlap credit, once refused too (item 12)."""
     c = jcost.with_topology(jcost.uniform_cost(4), pod_bw=[1.0, 2.0],
                             pod_latency=0.5)
     got = carry_cost(c)
     np.testing.assert_array_equal(got.pod_bw.numpy(), [1.0, 2.0])
     assert got.pod_latency == 0.5
-    with pytest.raises(NotImplementedError, match="item 12"):
-        carry_cost(jcost.with_overlap_credit(c, 0.5))
+    assert carry_cost(jcost.with_overlap_credit(c, 0.5)).overlap_credit \
+        == 0.5
