@@ -21,9 +21,10 @@ the card and times both, then drives the port's paths at full width:
 3. kernels (K1/K2) against their plain versions at (N, D) = (32, 2²²+37),
    (7, 513), (1, 1) and the main path's shapes, with random, all-false
    and all-true masks (C′ bit-equal; ḡ and x′ within rtol 1e-5, atol
-   1e-6 — the N-sum runs in another order), and at the hierarchy
-   phase's pod rows (``POD_ROW_SHAPES``); times at the main path's
-   shapes and at (32, 2²²);
+   1e-6 — the N-sum runs in another order), at the hierarchy phase's
+   pod rows (``POD_ROW_SHAPES``), and K2 on an offset d-slice at
+   ``SLICE_SHAPE`` (the 2-D engine's); times at the main path's shapes,
+   at (32, 2²²) and K2's at the slice;
 4. kernels (K3/K4) against their plain twins: flash attention at
    phi4-mini's prefill (4, 1024, 24, 8, 128) in bf16, at a ragged S, at
    a ragged S below one tile, with a window, at hd 64 in bf16 and in f32
@@ -113,7 +114,24 @@ the card and times both, then drives the port's paths at full width:
    compression=int8`` on ``("pod", "data") = (2, 1)``, each against the
    scan run within 2e-5 (5e-2 under the int8 exchange).  Every run's collective log passes the
    engine's contract (``repro_torch.analysis``); ms per round beside
-   the scan run's.
+   the scan run's;
+17. sharded2d: the 2-D engine (``engine="sharded2d"``, workers over
+   "data", the parameter dimension over "model").  (a) NCCL at world size
+   1 in this process on ("data", "model") = (1, 1): the dense main path
+   (the init fully on panels: Newton–Schulz over one 268 MB panel, the
+   blocked factor, the first step), dense int8, diag (K2 on the slice,
+   here all of d: 30 launches) and diag ``overlap=True``, each against
+   the scan run of the same problem and key (``projection="ns"`` for
+   dense): integer traces equal, x¹ within ``SHARDED2D_X1_TOL`` (dense;
+   bit-equal for diag), x² … x^T within 2e-5 x max |x| (5e-2 int8),
+   overlap bit-equal; the dense init's seconds split into its parts;
+   (b) two ranks on the card over gloo: diag on (1, 2) (K2 at (32, 2048)
+   on each rank's slice, 30 launches a rank), diag on (2, 1) (no kernel,
+   the data all-reduce) and dense at d = 2048 on (1, 2).  Every log
+   within the ``sharded2d`` contract; the dense runs' largest tensor
+   (``analysis.LargestTensors``) within one (d/n_model, d) panel, beside
+   ``torch.cuda.max_memory_allocated``; ms per round and init seconds
+   beside the scan run's.
 
 K1 and K2 are also held against their plain versions at the batch
 engine's (8, 32, 8192) and (8, 32, 4096), a ragged (3, 7, 513) and B = 1,
@@ -178,6 +196,9 @@ LARGE_SHAPE = (32, 1 << 22)
 # the pod rows (B·P, N/P, D) the hierarchy phase's runs give K1/K2: dense
 # pods=2, diag pods=4, and the diag run over SEEDS seeds
 POD_ROW_SHAPES = ((2, 16, 8192), (4, 8, 4096), (SEEDS * 4, 8, 4096))
+# K2 on a model shard's d-slice (the 2-D engine on two model ranks): x and
+# hdiag are the second half of (2·D,) vectors, G, M, C (N, D) of their own
+SLICE_SHAPE = (32, 2048)
 # batch row b against a scan run of seed b on the card: xs within this
 # times max |x| (the B-column oracle product rounds apart from one column)
 BATCH_XS_RTOL = 1e-4
@@ -235,6 +256,15 @@ def make_inputs(torch, n, d, mask_kind, gen, b=None):
     c = torch.randn(*lead, n, d, device=dev, generator=gen)
     x = torch.randn(*lead, d, device=dev, generator=gen)
     h = torch.rand(*lead, d, device=dev, generator=gen) + 0.05
+    return g, m, c, x, h
+
+
+def slice_inputs(torch, n, d, mask_kind, gen):
+    """``make_inputs`` at (n, d) with x and h the second halves of (2d,)
+    vectors: a model shard's d-slice, at an offset."""
+    g, m, c, _, _ = make_inputs(torch, n, d, mask_kind, gen)
+    x = torch.randn(2 * d, device="cuda", generator=gen)[d:]
+    h = (torch.rand(2 * d, device="cuda", generator=gen) + 0.05)[d:]
     return g, m, c, x, h
 
 
@@ -324,20 +354,36 @@ def phase_kernels(torch, report):
                                          f"output beyond rtol 1e-5")
                 err = (out_k[0] - out_p[0]).abs().max().item()
                 worst = max(worst, err)
+        if name == "ranl_update":
+            n, d = SLICE_SHAPE
+            for mk in ("random", "all_false", "all_true"):
+                args = slice_inputs(torch, n, d, mk, gen)
+                out_k, out_p = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                if not (torch.equal(out_k[1], out_p[1]) and torch.allclose(
+                        out_k[0], out_p[0], rtol=1e-5, atol=1e-6)):
+                    raise AssertionError(f"{name} on an offset slice "
+                                         f"{SLICE_SHAPE} {mk} differs")
+                worst = max(worst, (out_k[0] - out_p[0]).abs().max().item())
         report[name] = {"max_abs_err": worst}
         log(f"{name}: matches its plain version (C' bit-equal, "
             f"max |err| {worst:.3e}), seed-batched and pod-row shapes "
-            f"included")
+            f"included" + (f", and {SLICE_SHAPE} on an offset d-slice"
+                           if name == "ranl_update" else ""))
 
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
     for name in ("region_aggregate", "ranl_update"):
         kern, plain = calls(name)
-        for label, shape in (("_batch", BATCH_SHAPE[name]),
-                             ("_single", MAIN_SHAPE[name]),
-                             ("_large", LARGE_SHAPE)):
+        timed = [("_batch", BATCH_SHAPE[name]), ("_single", MAIN_SHAPE[name]),
+                 ("_large", LARGE_SHAPE)]
+        if name == "ranl_update":
+            timed.append(("_slice", SLICE_SHAPE))
+        for label, shape in timed:
             *b, n, d = shape
             nbytes = kernel_bytes(name, n, d, *b)
-            sets = [make_inputs(torch, n, d, "random", gen, *b)
+            sets = [(slice_inputs(torch, n, d, "random", gen)
+                     if label == "_slice" else
+                     make_inputs(torch, n, d, "random", gen, *b))
                     for _ in range(min(64, -(-2 * L2_BYTES // nbytes)))]
             row = {f"ms{label}": device_ms(torch, kern, sets),
                    f"plain_ms{label}": device_ms(torch, plain, sets),
@@ -973,14 +1019,16 @@ def loopback():
                 os.environ[k] = v
 
 
-def contract_counts(rt, res, dim, label, **kw):
-    """Hold a sharded run's collective log to the engine's contract;
-    returns the counts: param-sized all-reduces matched per dimension
-    (and the units they cover), small in-loop and outside-loop ones."""
+def contract_counts(rt, res, dim, label, engine="sharded", extents=None,
+                    **kw):
+    """Hold a sharded run's collective log to the engine's contract
+    (``extents``: the 2-D mesh's n_data and n_model); returns the counts:
+    param-sized all-reduces matched per dimension (and the units they
+    cover), small and capped in-loop and outside-loop ones."""
     from repro_torch.analysis import check_log, engine_contract
     opts = rt.RanlOptions(**kw)
-    rep = check_log(engine_contract("sharded", opts, dim=dim),
-                    res.collectives)
+    rep = check_log(engine_contract(engine, opts, dim=dim,
+                                    **(extents or {})), res.collectives)
     if not rep["ok"]:
         raise AssertionError(f"{label}: collective log breaks the "
                              f"contract: {rep['violations'][:3]}")
@@ -992,24 +1040,27 @@ def contract_counts(rt, res, dim, label, **kw):
     return counts
 
 
-def sharded_vs_scan(torch, sh, scan, label, tol):
+def sharded_vs_scan(torch, sh, scan, label, tol, x1_tol=0.0):
     """A sharded run against the scan run of the same problem and key:
     integer traces, comm_bytes, round_time and pod_bytes equal; x¹ bit-
-    equal (the same init code); x² … x^T within ``tol`` x max |x| (of
-    xs_pods under hierarchy).  Returns that largest gap."""
+    equal (the same init code; within ``x1_tol`` x max |x| where given);
+    x² … x^T within ``tol`` x max |x| (of xs_pods under hierarchy).
+    Returns (the x² … x^T gap, x¹'s)."""
     same_traces(torch, sh, scan, label)
     if not torch.equal(sh.pod_bytes.cpu(), scan.pod_bytes.cpu()):
         raise AssertionError(f"{label}: pod_bytes differ")
     a, b = ((sh.xs_pods, scan.xs_pods) if scan.xs_pods is not None
             else (sh.xs, scan.xs))
     a, b = a.cpu(), b.cpu()
-    if not torch.equal(a[1], b[1]):
-        raise AssertionError(f"{label}: x1 differs from the scan run's")
+    err1 = ((a[1] - b[1]).abs().max() / b.abs().max()).item()
+    if not (torch.equal(a[1], b[1]) if x1_tol == 0.0 else err1 <= x1_tol):
+        raise AssertionError(f"{label}: x1 differs from the scan run's "
+                             f"({err1} x max |x|, tol {x1_tol})")
     err = ((a[2:] - b[2:]).abs().max() / b.abs().max()).item()
     if not err <= tol:
         raise AssertionError(f"{label}: x2..xT max |err| {err} x max |x| "
                              f"> {tol}")
-    return err
+    return err, err1
 
 
 # leg (a): NCCL at world size 1 — (label, problem kind, options, xs
@@ -1076,8 +1127,8 @@ def sharded_world_of_one(torch, rt, report, launches):
                 if counts != ZERO:
                     raise AssertionError(f"sharded {label}: the engine "
                                          f"launched kernels {counts}")
-                err = sharded_vs_scan(torch, sh, scan,
-                                      f"sharded {label} vs scan", tol)
+                err, _ = sharded_vs_scan(torch, sh, scan,
+                                         f"sharded {label} vs scan", tol)
                 if kw.get("overlap"):
                     for f in ("xs",) + INT_TRACES:
                         if not torch.equal(getattr(sh, f), getattr(seq, f)):
@@ -1213,8 +1264,8 @@ def sharded_two_ranks(torch, rt, report):
             if x is not None and not torch.equal(x, y):
                 raise AssertionError(f"sharded (b) {label}: ranks differ "
                                      f"in {f}")
-        err = sharded_vs_scan(torch, a["result"], a["scan"],
-                              f"sharded (b) {label} vs scan", tol)
+        err, _ = sharded_vs_scan(torch, a["result"], a["scan"],
+                                 f"sharded (b) {label} vs scan", tol)
         T = a["result"].coverage.shape[0]
         kw = dict(num_rounds=T, num_regions=64, hierarchy=spec)
         cc = [contract_counts(rt, r[label]["result"],
@@ -1246,6 +1297,380 @@ def phase_sharded(torch, rt, report, launches):
         b = sharded_two_ranks(torch, rt, report)
     report["sharded"] = {**{f"nccl_x1_{k}": v for k, v in a.items()},
                          **{f"gloo_x2_{k}": v for k, v in b.items()}}
+
+
+# --------------------------------------------------------------------------
+# the 2-D engine ("data" x "model") on torch.distributed
+# --------------------------------------------------------------------------
+
+# x¹ of a dense 2-D run against the scan run with projection="ns", x
+# max |x|: derived as INIT_XS_TOL is — the panel products associate the
+# Newton–Schulz cube as (X·X)·X where project_psd_ns computes X·(X·X),
+# and the f32 rounding apart of the two projections (a few ulps of
+# [H]_μ) reaches x¹ through the solve amplified by up to κ·2⁻²³·8 ≈ 1e-3
+# at κ = 1e3; the rounds after it contract the gap.
+SHARDED2D_X1_TOL = INIT_XS_TOL
+# leg (a), NCCL at world size 1 on a ("data", "model") = (1, 1) mesh:
+# (label, problem kind, options, xs tolerance against the scan run, K2
+# launches of the run)
+SHARDED2D_RUNS = (("dense", "dense", {}, 2e-5, 0),
+                  ("dense_int8", "dense", {"compression": "int8"}, 5e-2, 0),
+                  ("diag", "diag", {}, 2e-5, 30),
+                  ("diag_overlap", "diag", {"overlap": True}, 2e-5, 30))
+# leg (b), two ranks on the one card over gloo: (label, problem kind,
+# (n_data, n_model), xs tolerance, K2 launches a rank).  The dense run is
+# cut to d = 2048: each Newton–Schulz step all-reduces 6 panels through
+# gloo's host hop, ≈ 38 GB a run at d = 8192 against ≈ 2.2 GB at 2048.
+SHARDED2D_RANK_RUNS = (("diag_1x2", "diag", (1, 2), 2e-5, 30),
+                       ("diag_2x1", "diag", (2, 1), 2e-5, 0),
+                       ("dense_1x2_d2048", "dense2048", (1, 2), 2e-5, 0))
+
+
+def dense2048_problem(torch, rt, device="cuda"):
+    from repro_torch import prng
+    return rt.make_quadratic(prng.PRNGKey(0), num_workers=32, dim=2048,
+                             kappa=1e3, coupling=0.0, num_regions=64,
+                             device=device)
+
+
+def memory_row(torch, rt, rec, opts, dim, n_model, label):
+    """Hold a recorded dense 2-D run to one (dim/n_model, dim) panel plus
+    MEMORY_SLACK; -> the row (largest tensor, its op, the ceiling, the
+    card's peak allocation since the last reset)."""
+    from repro_torch.analysis import memory_ceiling
+    ceiling = memory_ceiling("sharded2d", rt.RanlOptions(**opts), dim=dim,
+                             n_model=n_model)
+    if not rec.max_bytes <= ceiling:
+        raise AssertionError(f"{label}: a {rec.max_bytes}-byte tensor "
+                             f"({rec.max_op}) over the {ceiling}-byte "
+                             f"panel ceiling")
+    return {"largest_tensor_bytes": rec.max_bytes,
+            "largest_tensor_op": list(map(str, rec.max_op)),
+            "panel_ceiling_bytes": ceiling,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def dense2d_init_split(torch, problem, mesh, key):
+    """Seconds of the dense 2-D init's parts on ``mesh``, called one by
+    one as ``sharded2d._dense_init`` calls them: the mean Hessian's row
+    panel, the Newton–Schulz projection over panels, the blocked factor,
+    the first step."""
+    from repro_torch import prng
+    from repro_torch.core import sharded2d
+    from repro_torch.core.collectives import Collectives
+    from repro_torch.core.hessian import project_psd_ns_panels
+    coll = Collectives(mesh)
+    N, d = problem.num_workers, problem.dim
+    p = d // coll.size("model")
+    r0 = coll.rank("model") * p
+    k_init = prng.split(key)[0]
+    hkeys = prng.split(prng.fold_in(k_init, 0), N)
+    x0 = torch.zeros(d, device="cuda")
+
+    def hessian():
+        h = torch.zeros((p, d), device="cuda")
+        for i in range(N):
+            h = h + problem.worker_hessian_rows(i, x0, hkeys[i], r0, p)
+        return coll.all_reduce(h, "data").wait() / N
+    h, t_h = sync_time(torch, hessian)
+    h_mu, t_ns = sync_time(torch, lambda: project_psd_ns_panels(
+        h, float(problem.mu), coll=coll, dim="model", num_iters=60))
+    chol, t_f = sync_time(torch, lambda: sharded2d._factor_panels(
+        h_mu, coll=coll, dim="model"))
+    g = torch.ones(p, device="cuda")
+    _, t_s = sync_time(torch, lambda: sharded2d._solve_panels(
+        chol, g, coll=coll, dim="model", row_start=r0))
+    return {"hessian_panel_s": t_h, "ns_panels_s": t_ns,
+            "blocked_factor_s": t_f, "first_step_s": t_s}
+
+
+def sharded2d_world_of_one(torch, rt, report, launches):
+    """Leg (a): NCCL at world size 1 in this process, a ("data", "model")
+    = (1, 1) mesh.  Each run of ``SHARDED2D_RUNS`` on engine="sharded2d"
+    against the scan run of the same problem and key (projection="ns"
+    for dense); overlap bit-equal to sequential; K2 launched once a round
+    on the diag runs and never on the dense ones; the dense runs'
+    largest tensor within one panel; every log within the contract."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import prng
+    from repro_torch.analysis import LargestTensors
+    T, key = 30, prng.PRNGKey(1)
+    pol = rt.PolicyConfig(keep_prob=0.5, tau_star=1)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        sharded_store("nccl2d"), 1), rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        small = rt.make_quadratic(prng.PRNGKey(0), num_workers=4, dim=64,
+                                  num_regions=4, device="cuda")
+        rt.run(small, key, engine="sharded2d", mesh=mesh, num_rounds=2,
+               num_regions=4)               # untimed: NCCL's first calls
+        for kind in ("dense", "diag"):
+            problem = (dense_problem if kind == "dense" else diag_problem)(
+                torch, rt)
+            base = dict(num_rounds=T, num_regions=64, curvature=kind,
+                        policy=pol)
+            proj = {"projection": "ns"} if kind == "dense" else {}
+            scan_init = init_seconds(torch, lambda: rt.run(
+                problem, key, **{**base, **proj, "num_rounds": 0}))
+            if kind == "dense":
+                # one round, untimed: the memory recorder, and the first
+                # 2-D run at this size pays one-time costs (seconds on an H100)
+                torch.cuda.reset_peak_memory_stats()
+                with LargestTensors() as rec:
+                    rt.run(problem, key, engine="sharded2d", mesh=mesh,
+                           **{**base, "num_rounds": 1})
+                mem = memory_row(torch, rt, rec, base, problem.dim, 1,
+                                 "sharded2d dense")
+                split = dense2d_init_split(torch, problem, mesh, key)
+                # one round, timed: the init and a round
+                _, one_s = sync_time(torch, lambda: rt.run(
+                    problem, key, engine="sharded2d", mesh=mesh,
+                    **{**base, "num_rounds": 1}))
+            seq = None
+            for label, pk, kw, tol, k2 in SHARDED2D_RUNS:
+                if pk != kind:
+                    continue
+                opts = {**base, **kw}
+                scan_kw = {k: v for k, v in {**opts, **proj}.items()
+                           if k != "overlap"}
+                scan, scan_s = sync_time(torch, lambda: rt.run(
+                    problem, key, **scan_kw))
+                if label == "dense_int8":
+                    torch.cuda.reset_peak_memory_stats()
+                    with LargestTensors() as rec:
+                        sh, sh_s, counts = counted(torch, launches, lambda: (
+                            rt.run(problem, key, engine="sharded2d",
+                                   mesh=mesh, **opts)))
+                    row_mem = memory_row(torch, rt, rec, opts, problem.dim,
+                                         1, f"sharded2d {label}")
+                else:
+                    sh, sh_s, counts = counted(torch, launches, lambda: (
+                        rt.run(problem, key, engine="sharded2d", mesh=mesh,
+                               **opts)))
+                    row_mem = mem if label == "dense" else None
+                check_finite(torch, sh)
+                if counts != {**ZERO, "ranl_update": k2}:
+                    raise AssertionError(f"sharded2d {label}: launches "
+                                         f"{counts}, expected {k2} of K2")
+                err, err1 = sharded_vs_scan(
+                    torch, sh, scan, f"sharded2d {label} vs scan", tol,
+                    SHARDED2D_X1_TOL if kind == "dense" else 0.0)
+                if kw.get("overlap"):
+                    for f in ("xs",) + INT_TRACES:
+                        if not torch.equal(getattr(sh, f), getattr(seq, f)):
+                            raise AssertionError(f"sharded2d {label}: {f} "
+                                                 f"differs from sequential")
+                elif not kw:
+                    seq = sh
+                cc = contract_counts(rt, sh, problem.dim,
+                                     f"sharded2d {label}", "sharded2d",
+                                     {"n_data": 1, "n_model": 1}, **opts)
+                if kind == "dense":
+                    rounds_ms = (sh_s - one_s) / (T - 1) * 1e3
+                    init_s = one_s - rounds_ms / 1e3
+                else:
+                    init_s = scan_init        # the same replicated init
+                    rounds_ms = (sh_s - init_s) / T * 1e3
+                out[label] = {
+                    "round_ms": rounds_ms,
+                    "scan_round_ms": (scan_s - scan_init) / T * 1e3,
+                    "init_s": init_s, "scan_init_s": scan_init,
+                    "xs_vs_scan_max_rel": err, "x1_vs_scan_max_rel": err1,
+                    "xs_tol": tol, "launches": counts, "collectives": cc,
+                    "memory": row_mem,
+                    "timed_with_recorder": label == "dense_int8"}
+                if label == "dense":
+                    out[label]["init_split"] = split
+                log(f"sharded2d (a) NCCL x1 {label}: "
+                    f"{out[label]['round_ms']:.3f} ms/round against "
+                    f"{out[label]['scan_round_ms']:.3f} on the scan engine; "
+                    f"init {init_s:.3f} s against {scan_init:.3f} "
+                    f"({report.get('nvidia_smi')}); traces equal, x1 "
+                    f"{err1:.3e}, x2..xT {err:.3e} x max |x| (tol {tol}); "
+                    f"launches {counts}; collectives {cc}; memory {row_mem}")
+            if kind == "dense":
+                log(f"sharded2d (a) dense init split: {split}")
+            del problem
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _sharded2d_rank(rank, store, out_dir):
+    """Leg (b)'s rank ``rank`` of 2, on the one card over gloo: each run
+    of ``SHARDED2D_RANK_RUNS`` on engine="sharded2d", its launches
+    counted (set to 0 just before, read just after) and, dense, its
+    largest tensor recorded; rank 0 then runs the same on the scan
+    engine.  Results, on the host, go to ``out_dir/rank2d<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    import repro_torch as rt
+    from repro_torch import prng
+    from repro_torch.analysis import LargestTensors
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    try:
+        key, T = prng.PRNGKey(1), 30
+        problems = {}
+        out = {}
+        for label, kind, shape, _, _ in SHARDED2D_RANK_RUNS:
+            if kind not in problems:
+                problems.clear()
+                torch.cuda.empty_cache()
+                problems[kind] = (diag_problem if kind == "diag"
+                                  else dense2048_problem)(torch, rt)
+            problem = problems[kind]
+            curv = "diag" if kind == "diag" else "dense"
+            mesh = init_device_mesh("cuda", shape,
+                                    mesh_dim_names=("data", "model"))
+            opts = dict(num_rounds=T, num_regions=64, curvature=curv,
+                        policy=rt.PolicyConfig(keep_prob=0.5, tau_star=1))
+            proj = {"projection": "ns"} if curv == "dense" else {}
+            init_s = init_seconds(torch, lambda: rt.run(
+                problem, key, **{**opts, **proj, "num_rounds": 0}))
+            if rank == 0:                   # untimed: the scan's kernels
+                rt.run(problem, key, **{**opts, **proj, "num_rounds": 3})
+            dist.barrier()
+            _, one_s = sync_time(torch, lambda: rt.run(
+                problem, key, engine="sharded2d", mesh=mesh,
+                **{**opts, "num_rounds": 1}))
+            dist.barrier()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            with (LargestTensors() if curv == "dense"
+                  else contextlib.nullcontext()) as rec:
+                res, secs = sync_time(torch, lambda: rt.run(
+                    problem, key, engine="sharded2d", mesh=mesh, **opts))
+            row = {"result": on_host(res), "seconds": secs,
+                   "one_round_s": one_s, "init_s": init_s,
+                   "launches": dict(LAUNCHES),
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "largest": None if rec is None else (rec.max_bytes,
+                                                        rec.max_op)}
+            if rank == 0:
+                scan, row["scan_seconds"] = sync_time(
+                    torch, lambda: rt.run(problem, key, **opts, **proj))
+                row["scan"] = on_host(scan)
+            dist.barrier()
+            out[label] = row
+        torch.save(out, os.path.join(out_dir, f"rank2d{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded2d_two_ranks(torch, rt, report, launches):
+    """Leg (b): two ranks on the one card over gloo (``torch.
+    multiprocessing`` spawn, joined within 600 s).  Each run held to the
+    scan run (``SHARDED2D_RANK_RUNS``), both ranks' results equal, both
+    logs within the contract, K2's launches on each rank as listed (they
+    are added to the main-path counts), the dense run's largest tensor
+    within one panel."""
+    import torch.multiprocessing as mp
+    from repro_torch.analysis import memory_ceiling
+    out_dir = os.path.dirname(sharded_store("gloo2d"))
+    for r in (0, 1):
+        if os.path.exists(os.path.join(out_dir, f"rank2d{r}.pt")):
+            os.remove(os.path.join(out_dir, f"rank2d{r}.pt"))
+    ctx = mp.start_processes(_sharded2d_rank, args=(
+        os.path.join(out_dir, "gloo2d"), out_dir), nprocs=2, join=False,
+        start_method="spawn")
+    deadline = time.time() + 600
+    while not ctx.join(timeout=5):
+        if time.time() > deadline:
+            for p in ctx.processes:
+                p.terminate()
+            raise AssertionError("the two sharded2d ranks did not finish "
+                                 "in 600 s")
+    ranks = [torch.load(os.path.join(out_dir, f"rank2d{r}.pt"),
+                        weights_only=False) for r in (0, 1)]
+    out = {}
+    for label, kind, (n_data, n_model), tol, k2 in SHARDED2D_RANK_RUNS:
+        a, b = ranks[0][label], ranks[1][label]
+        for f in ("xs",) + INT_TRACES:
+            if not torch.equal(getattr(a["result"], f),
+                               getattr(b["result"], f)):
+                raise AssertionError(f"sharded2d (b) {label}: ranks "
+                                     f"differ in {f}")
+        dense = kind != "diag"
+        err, err1 = sharded_vs_scan(
+            torch, a["result"], a["scan"], f"sharded2d (b) {label} vs scan",
+            tol, SHARDED2D_X1_TOL if dense else 0.0)
+        d = a["result"].xs.shape[-1]
+        T = a["result"].coverage.shape[0]
+        kw = dict(num_rounds=T, num_regions=64,
+                  curvature="dense" if dense else "diag")
+        cc = [contract_counts(rt, r[label]["result"], d,
+                              f"sharded2d (b) {label} rank {i}", "sharded2d",
+                              {"n_data": n_data, "n_model": n_model}, **kw)
+              for i, r in enumerate(ranks)]
+        for i, r in enumerate(ranks):
+            got = r[label]["launches"]
+            if got != {**ZERO, "ranl_update": k2}:
+                raise AssertionError(f"sharded2d (b) {label} rank {i}: "
+                                     f"launches {got}, expected {k2} of K2")
+            for name, v in got.items():
+                launches[name] += v
+        largest = [r[label]["largest"] for r in ranks]
+        if dense:
+            ceiling = memory_ceiling("sharded2d", rt.RanlOptions(**kw),
+                                     dim=d, n_model=n_model)
+            for i, (nbytes, op) in enumerate(largest):
+                if not nbytes <= ceiling:
+                    raise AssertionError(f"sharded2d (b) {label} rank {i}: "
+                                         f"a {nbytes}-byte tensor ({op}) "
+                                         f"over the {ceiling}-byte ceiling")
+        # dense: rounds from the 30- and the 1-round run (their init is
+        # the 2-D one); diag: the replicated init is the scan's
+        round_ms = [((r[label]["seconds"] - r[label]["one_round_s"])
+                     / (T - 1) if dense else
+                     (r[label]["seconds"] - r[label]["init_s"]) / T) * 1e3
+                    for r in ranks]
+        out[label] = {
+            "mesh": {"data": n_data, "model": n_model}, "dim": d,
+            "round_ms": round_ms,
+            "init_s": [r[label]["one_round_s"] - ms / 1e3
+                       for r, ms in zip(ranks, round_ms)],
+            "scan_round_ms": (a["scan_seconds"] - a["init_s"]) / T * 1e3,
+            "seconds": [r[label]["seconds"] for r in ranks],
+            "scan_init_s": a["init_s"], "xs_vs_scan_max_rel": err,
+            "x1_vs_scan_max_rel": err1, "xs_tol": tol,
+            "launches": [r[label]["launches"] for r in ranks],
+            "largest_tensor": [None if x is None else [x[0], list(map(str, x[1]))]
+                               for x in largest],
+            "max_memory_allocated": [r[label]["max_memory_allocated"]
+                                     for r in ranks],
+            "collectives": cc[0]}
+        log(f"sharded2d (b) gloo x2 on one card {label} "
+            f"{out[label]['mesh']}: {out[label]['round_ms'][0]:.3f} / "
+            f"{out[label]['round_ms'][1]:.3f} ms/round (ranks 0 / 1), init "
+            f"{out[label]['init_s'][0]:.3f} s, against "
+            f"{out[label]['scan_round_ms']:.3f} ms/round and init "
+            f"{a['init_s']:.3f} s on the scan engine "
+            f"({report.get('nvidia_smi')}); ranks equal, traces equal the "
+            f"scan run's, x1 {err1:.3e}, x2..xT {err:.3e} x max |x| (tol "
+            f"{tol}); launches {out[label]['launches']}; largest tensor "
+            f"{out[label]['largest_tensor']}; collectives {cc[0]}")
+    return out
+
+
+def phase_sharded2d(torch, rt, report, launches):
+    """The 2-D engine: leg (a), NCCL at world size 1 in this process;
+    leg (b), two ranks on the card over gloo."""
+    with loopback():
+        a = sharded2d_world_of_one(torch, rt, report, launches)
+        b = sharded2d_two_ranks(torch, rt, report, launches)
+    report["sharded2d"] = {**{f"nccl_x1_{k}": v for k, v in a.items()},
+                           **{f"gloo_x2_{k}": v for k, v in b.items()}}
 
 
 @contextlib.contextmanager
@@ -2165,6 +2590,8 @@ def main(argv=None) -> int:
             ("hierarchy", lambda: phase_hierarchy(torch, rt, report,
                                                   launches)),
             ("sharded", lambda: phase_sharded(torch, rt, report, launches)),
+            ("sharded2d", lambda: phase_sharded2d(torch, rt, report,
+                                                  launches)),
             ("lowrank_init", lambda: phase_lowrank(torch, rt, report,
                                                    launches)),
             ("train_grad", lambda: phase_train_grad(torch, report)),

@@ -2,8 +2,8 @@
 for distributed learning), for one NVIDIA H100.
 
 ``repro_torch.run(problem, key, ...)`` mirrors ``repro.run`` with the
-port's engines ("scan", "batch", "sharded" on ``torch.distributed`` and
-"reference"; "sharded2d" is still to come); ``repro_torch.prng``
+port's engines ("scan", "batch", "sharded" and "sharded2d" on
+``torch.distributed``, and "reference"); ``repro_torch.prng``
 reproduces the reference's random streams, and ``repro_torch.kernels``
 holds the hand-written GPU kernels with their plain twins.  Entry points
 run on the CUDA card unless the caller passes ``device="cpu"``.

@@ -17,7 +17,16 @@ the same promises:
   dimension per exchange window (``num_rounds / period`` of them), in
   the window of the exchange's own compression;
 * the batch engine with a mesh runs nothing inside the round loop
-  (one gather of the result rows after it).
+  (one gather of the result rows after it);
+* the 2-D engine runs exactly ONE all-reduce over the data dimension per
+  round, of its model shard's d/n_model floats (the int8 window under
+  compression; none on the K2 path, where one data rank holds every
+  worker), one pod all-reduce of d floats a window under ``hierarchy``,
+  model-dimension collectives of at most d floats in the loop, and, for
+  dense curvature, init collectives of at most two (d/n_model, d)
+  panels.  Its memory contract (``memory_ceiling``, checked by
+  ``analysis.memory.LargestTensors``): no tensor the dense run makes is
+  larger than one panel plus ``MEMORY_SLACK``.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from dataclasses import dataclass
 
 PARAM_SLACK = 256        # bytes: the ceiling of a "small" collective
 COMPRESSED_SLACK = 64    # bytes of side-band a compressed payload may add
+MEMORY_SLACK = 64 * 1024  # bytes a tensor may exceed the panel by
 
 
 @dataclass(frozen=True)
@@ -44,13 +54,17 @@ class Budget:
 @dataclass(frozen=True)
 class CommContract:
     """``budgets``: the param-sized collectives of the round loop;
-    ``small_max_bytes``: the ceiling of every other in-loop collective
-    (0: none may run in the loop); ``outside``: whether collectives may
-    run outside the loop."""
+    ``caps``: (dim, max bytes) of the other in-loop collectives over that
+    dimension, any number of them; ``small_max_bytes``: the ceiling of
+    every other in-loop collective (0: none may run in the loop);
+    ``outside``: whether collectives may run outside the loop, each of at
+    most ``outside_max_bytes`` (None: any size)."""
     rounds: int
     budgets: tuple[Budget, ...] = ()
     small_max_bytes: int = 0
     outside: bool = False
+    caps: tuple[tuple[str, int], ...] = ()
+    outside_max_bytes: int | None = None
 
 
 def _payload_window(comp, nbytes_f32: int):
@@ -67,16 +81,22 @@ def _payload_window(comp, nbytes_f32: int):
 
 
 def engine_contract(engine: str, opts, *, dim: int, mesh=None,
-                    data_axis: str = "data",
-                    pod_axis: str = "pod") -> CommContract:
+                    data_axis: str = "data", pod_axis: str = "pod",
+                    model_axis: str = "model", n_data: int = 1,
+                    n_model: int = 1) -> CommContract:
     """The contract of ``engine`` run with ``opts`` on a ``dim``-wide
-    problem (``mesh``: the run's ``DeviceMesh``, or None)."""
+    problem (``mesh``: the run's ``DeviceMesh``, or None; ``n_data`` and
+    ``n_model``: the 2-D mesh's extents)."""
     T = int(opts.num_rounds)
     if engine in ("scan", "reference") or (engine == "batch"
                                             and mesh is None):
         return CommContract(rounds=T)
     if engine == "batch":
         return CommContract(rounds=T, outside=True)
+    if engine == "sharded2d":
+        return _contract_2d(opts, T, dim=dim, n_data=n_data,
+                            n_model=n_model, data_axis=data_axis,
+                            pod_axis=pod_axis, model_axis=model_axis)
     if engine != "sharded":
         raise ValueError(f"no contract for engine {engine!r}")
     lo, hi, dts = _payload_window(opts.compression_spec(), dim * 4)
@@ -92,6 +112,45 @@ def engine_contract(engine: str, opts, *, dim: int, mesh=None,
                         small_max_bytes=PARAM_SLACK, outside=True)
 
 
+def _contract_2d(opts, T: int, *, dim: int, n_data: int, n_model: int,
+                 data_axis: str, pod_axis: str,
+                 model_axis: str) -> CommContract:
+    p = dim // n_model
+    comp, hspec = opts.compression_spec(), opts.hierarchy_spec()
+    fused = (opts.use_kernel and opts.curvature == "diag" and n_data == 1
+             and opts.quorum_spec() is None and comp is None
+             and hspec is None)
+    budgets = []
+    if not fused:
+        lo, hi, dts = _payload_window(comp, p * 4)
+        budgets.append(Budget(dim=data_axis, period=1, units=T,
+                              min_bytes=lo, max_bytes=hi, dtypes=dts))
+    outside_max = PARAM_SLACK      # overlap samples round 1 before the loop
+    if opts.curvature == "dense":
+        outside_max = 2 * p * dim * 4            # the init: two panels
+    if hspec is not None:
+        lo, hi, dts = _payload_window(hspec.compression, dim * 4)
+        budgets.append(Budget(dim=pod_axis, period=hspec.period,
+                              units=T // hspec.period, min_bytes=lo,
+                              max_bytes=hi, dtypes=dts))
+        # the pods' iterates, gathered after the loop
+        outside_max = max(outside_max, (T + 2) * dim * 4)
+    return CommContract(rounds=T, budgets=tuple(budgets),
+                        small_max_bytes=PARAM_SLACK,
+                        caps=((model_axis, dim * 4),),
+                        outside=True, outside_max_bytes=outside_max)
+
+
+def memory_ceiling(engine: str, opts, *, dim: int,
+                   n_model: int = 1) -> int | None:
+    """The largest tensor, in bytes, a run may make: for the 2-D
+    engine's dense curvature one (dim/n_model, dim) f32 panel plus
+    ``MEMORY_SLACK``; None where no ceiling is promised."""
+    if engine == "sharded2d" and opts.curvature == "dense":
+        return (dim // n_model) * dim * 4 + MEMORY_SLACK
+    return None
+
+
 def check_log(contract: CommContract, log) -> dict:
     """Hold a collective log to ``contract``.  Returns ``{"ok": bool,
     "violations": [...], "counts": {...}}``: ``counts`` has, per budget,
@@ -99,12 +158,17 @@ def check_log(contract: CommContract, log) -> dict:
     outside-the-loop collectives."""
     bad = []
     matched = [[0] * b.units for b in contract.budgets]
-    small = outside = 0
+    caps = dict(contract.caps)
+    small = capped = outside = 0
     for rec in log:
         if rec.round is None:
             outside += 1
             if not contract.outside:
                 bad.append(f"collective outside the loop: {rec}")
+            elif (contract.outside_max_bytes is not None
+                  and rec.nbytes > contract.outside_max_bytes):
+                bad.append(f"collective outside the loop over "
+                           f"{contract.outside_max_bytes} bytes: {rec}")
             continue
         if not 1 <= rec.round <= contract.rounds:
             bad.append(f"collective in round {rec.round} of "
@@ -119,10 +183,15 @@ def check_log(contract: CommContract, log) -> dict:
                     matched[i][unit] += 1
                     break
         else:
-            small += 1
-            if rec.nbytes > contract.small_max_bytes:
-                bad.append(f"in-loop collective over "
-                           f"{contract.small_max_bytes} bytes: {rec}")
+            if rec.dim in caps:
+                capped += 1
+                ceiling = caps[rec.dim]
+            else:
+                small += 1
+                ceiling = contract.small_max_bytes
+            if rec.nbytes > ceiling:
+                bad.append(f"in-loop collective over {ceiling} bytes: "
+                           f"{rec}")
     for b, per_unit in zip(contract.budgets, matched):
         for unit, n in enumerate(per_unit):
             if n != 1:
@@ -131,5 +200,6 @@ def check_log(contract: CommContract, log) -> dict:
                            f"expected 1")
     counts = {f"{b.dim}/{b.period}": per_unit
               for b, per_unit in zip(contract.budgets, matched)}
-    counts.update(small_in_loop=small, outside_loop=outside)
+    counts.update(small_in_loop=small, capped_in_loop=capped,
+                  outside_loop=outside)
     return {"ok": not bad, "violations": bad, "counts": counts}

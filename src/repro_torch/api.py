@@ -13,8 +13,10 @@ reference's ``repro.run``, plus the port's own rules:
   there — nothing moves silently;
 * ``engine="sharded"`` (and a seed-sharded ``"batch"``) take a
   ``torch.distributed.device_mesh.DeviceMesh`` with named dimensions
-  (``("data",)``, or ``("pod", "data")`` under ``hierarchy``); every rank
-  calls ``run`` with the same arguments (``core.sharded``);
+  (``("data",)``, or ``("pod", "data")`` under ``hierarchy``), and
+  ``engine="sharded2d"`` one with ``("data", "model")`` or ``("pod",
+  "data", "model")``; every rank calls ``run`` with the same arguments
+  (``core.sharded``, ``core.sharded2d``);
 * engines and options whose port is still to come raise
   ``NotImplementedError`` naming the ROADMAP item that brings them; the
   run never falls back to something else.
@@ -27,6 +29,7 @@ from .core.options import RanlOptions
 from .core.ranl import RanlResult, _run_batch, _run_reference, \
     _run_scan  # noqa: F401
 from .core.sharded import _run_batch_sharded, _run_sharded
+from .core.sharded2d import _run_sharded2d
 from .device import resolve_device
 
 ENGINES = ("scan", "batch", "sharded", "sharded2d", "reference")
@@ -35,7 +38,6 @@ _MESH_FORBIDDEN = ("scan", "reference")
 
 # what is not ported yet -> the ROADMAP (Queue 1) item that ports it
 _NOT_YET = {
-    "sharded2d": "item 13 (2-D engine)",
     "journal": "item 15 (observability)",
 }
 
@@ -95,6 +97,12 @@ def _resolve(engine, options, mesh, controller, overrides):
                              "no host-loop form on the reference oracle "
                              "— use engine='scan' or a sharded engine "
                              "on a pod mesh")
+    if engine == "sharded2d" and opts.hessian_rank is not None:
+        raise ValueError(
+            "hessian_rank is not implementable on the 2-D engine: its "
+            "dense init is panel-sharded (no device may hold the d×d "
+            "buffer the rank-r eigh fold reads) — use engine='scan', "
+            "'batch' or 'sharded'")
     if isinstance(controller, str):
         controller = make_controller(controller)
     if isinstance(controller, QuorumController):
@@ -144,15 +152,16 @@ def run(problem, key, *, engine: str = "scan",
     spec string or ``None`` (the options' policy); ``cost``: a
     ``CostModel`` on the problem's device or ``None`` (uniform).
     ``mesh``: a ``DeviceMesh`` on the run's device type, for
-    ``engine="sharded"`` (required) or to shard a batch's seeds;
-    ``axis_name`` names its worker (or seed) dimension and ``pod_axis``
-    its pod dimension; ``data_axis`` and ``model_axis`` belong to the 2-D
-    engine, not ported yet.  The one-card engines take no mesh and
-    ignore the axis names, as the reference's do.  ``scenario`` labels
+    ``engine="sharded"`` or ``"sharded2d"`` (required) or to shard a
+    batch's seeds.  ``axis_name`` names the worker (or seed) dimension of
+    ``"sharded"`` and ``"batch"``; ``data_axis`` and ``model_axis`` the
+    worker and parameter dimensions of ``"sharded2d"``; ``pod_axis`` the
+    pod dimension of both sharded engines.  The one-card engines take no
+    mesh and ignore the axis names, as the reference's do.  ``scenario`` labels
     the journal and is ignored without one.  ``**overrides`` are
     ``RanlOptions`` fields merged into ``options``.
     """
-    del data_axis, model_axis, scenario
+    del scenario
     opts, controller = _resolve(engine, options, mesh, controller,
                                 overrides)
     if journal is not None:
@@ -179,5 +188,10 @@ def run(problem, key, *, engine: str = "scan",
         return _run_sharded(problem, key, opts, mesh=mesh,
                             axis_name=axis_name, pod_axis=pod_axis,
                             controller=controller, cost=cost)
+    if engine == "sharded2d":
+        return _run_sharded2d(problem, key, opts, mesh=mesh,
+                              data_axis=data_axis, model_axis=model_axis,
+                              pod_axis=pod_axis, controller=controller,
+                              cost=cost)
     return _run_reference(problem, key, opts, controller=controller,
                           cost=cost)

@@ -20,10 +20,14 @@ from .compression import (  # noqa: F401
 )
 from .convex import Logistic, Quadratic, make_logistic, make_quadratic  # noqa: F401
 from .hessian import (  # noqa: F401
+    blocked_cho_solve,
+    blocked_cholesky,
     hutchinson_diag,
     project_diag,
     project_psd,
     project_psd_ns,
+    project_psd_ns_panels,
+    project_psd_sharded,
     solve_projected,
     sym_eigh,
 )

@@ -10,10 +10,17 @@ and all B seeds of the batch engine in the same product, so A or X is
 read once a round whatever B is); ``worker_grad``/``worker_hessian`` are
 the single-worker forms.  A zero noise scale adds exact zeros in the
 reference, so the draw is skipped.
+
+The ``*_rows`` oracles give rows [row_start, row_start+num_rows) of
+their full counterparts, bit for bit, for the 2-D engine's model shards
+(``core.sharded2d``): from a row panel of A (a ``row_panel`` view, or
+the whole A, which they slice) and from a column slice of Xᵢ, never
+holding a d×d buffer.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -31,6 +38,75 @@ def _sym_noise(key, d: int, device):
     ``normal(fold_in(key, r), (d,)) / d`` — its own key stream."""
     z = prng.normal(prng.fold_in(key, np.arange(d)), (d,), device) / d
     return 0.5 * (z + z.T)
+
+
+def _sym_noise_rows(key, d: int, row_start: int, num_rows: int, device):
+    """Rows [row_start, row_start+num_rows) of ``_sym_noise(key, d)``,
+    bit for bit.  z's rows come from their own streams; its columns at
+    the panel (entry [c, r] lives in row c's stream) from every source
+    row, a chunk of rows at a time, keeping the chunk's slice of the
+    panel's columns.  A chunk is half the panel's rows: the draw's int64
+    and float64 temporaries then stay within one (num_rows, d) f32
+    panel, so no tensor exceeds the output's size."""
+    chunk = max(1, num_rows // 2)
+    panel = slice(row_start, row_start + num_rows)
+
+    def z(r0, r1):                       # z[r0:r1, :]
+        return prng.normal(prng.fold_in(key, np.arange(r0, r1)), (d,),
+                           device) / d
+
+    rows = torch.empty((num_rows, d), dtype=_F32, device=device)
+    for a in range(0, num_rows, chunk):
+        b = min(a + chunk, num_rows)
+        rows[a:b] = z(row_start + a, row_start + b)
+    cols = torch.empty((d, num_rows), dtype=_F32, device=device)
+    for a in range(0, d, chunk):         # z[:, panel]
+        b = min(a + chunk, d)
+        cols[a:b] = z(a, b)[:, panel]
+    return 0.5 * (rows + cols.T)
+
+
+def _rows_of(m, row_start: int, num_rows: int):
+    """Rows [row_start, row_start+num_rows) of ``m`` (..., R, d) along
+    dim -2, or ``m`` itself when it holds exactly ``num_rows`` rows (a
+    ``row_panel`` view's A)."""
+    if m.shape[-2] == num_rows:
+        return m
+    return m[..., row_start:row_start + num_rows, :]
+
+
+def _row_dots(m, v):
+    """m @ v as a product and a sum over each row: unlike a BLAS matrix-
+    vector product, a row's value does not depend on how many rows come
+    with it, so a panel's rows equal the full product's."""
+    return (m * v).sum(dim=-1)
+
+
+_GRAM_BLOCK = 16
+
+
+def _gram_rows(X, s, row_start: int, num_rows: int):
+    """Rows [row_start, row_start+num_rows) of Xᵀ diag(s) X, X (n, d).
+    The rows are computed in blocks of ``_GRAM_BLOCK`` at fixed offsets
+    (multiples of the block), each one (block, n) @ (n, d) product: a
+    matrix product's rounding depends on its row count, so fixing the
+    blocks makes a panel's rows those of the whole matrix, bit for bit."""
+    d = X.shape[1]
+    out = torch.empty((num_rows, d), dtype=X.dtype, device=X.device)
+    end = row_start + num_rows
+    for a in range(row_start - row_start % _GRAM_BLOCK, end, _GRAM_BLOCK):
+        b = min(a + _GRAM_BLOCK, d)
+        blk = (X[:, a:b].T * s) @ X
+        lo, hi = max(a, row_start), min(b, end)
+        out[lo - row_start:hi - row_start] = blk[lo - a:hi - a]
+    return out
+
+
+def _eye_rows(d: int, row_start: int, num_rows: int, device):
+    """Rows [row_start, row_start+num_rows) of the d×d identity."""
+    cols = torch.arange(d, device=device)
+    rows = row_start + torch.arange(num_rows, device=device)
+    return (cols[None, :] == rows[:, None]).to(_F32)
 
 
 def _grad_noise(scale: float, keys, d: int, device):
@@ -103,7 +179,7 @@ class Quadratic:
         return g
 
     def worker_grad(self, i, x, key):
-        g = self.A[i] @ (x - self.b[i])
+        g = _row_dots(self.A[i], x - self.b[i])
         if self.grad_noise:
             g = g + _grad_noise(self.grad_noise, key, self.dim, self.device)
         return g
@@ -117,6 +193,48 @@ class Quadratic:
 
     def mean_hessian(self):
         return self.A.sum(dim=0) / self.num_workers
+
+    def row_panel(self, row_start: int, num_rows: int) -> "Quadratic":
+        """The problem with A cut to its rows [row_start, row_start +
+        num_rows) (a view): what a model shard of the 2-D engine holds.
+        Only the ``*_rows`` oracles read it."""
+        return dataclasses.replace(
+            self, A=self.A[:, row_start:row_start + num_rows])
+
+    def worker_grad_rows(self, i, x, key, row_start: int, num_rows: int):
+        """Rows [row_start, row_start+num_rows) of ``worker_grad``, bit
+        for bit: a panel of A times x − bᵢ (``_row_dots``), the noise
+        drawn at full length and sliced."""
+        g = _row_dots(_rows_of(self.A[i], row_start, num_rows),
+                      x - self.b[i])
+        if self.grad_noise:
+            g = g + _grad_noise(self.grad_noise, key, self.dim, self.device
+                                )[row_start:row_start + num_rows]
+        return g
+
+    def worker_grads_rows(self, xs, keys, row_start: int, num_rows: int):
+        """Rows [row_start, row_start+num_rows) of ``worker_grads``: xs
+        (..., N, d), keys (..., N, 2) -> (..., N, num_rows), one product
+        over the panel of A."""
+        N = self.num_workers
+        g = _from_columns(torch.bmm(
+            _rows_of(self.A, row_start, num_rows),
+            _per_worker_columns(xs - self.b, N)),
+            xs.shape[:-1] + (num_rows,))
+        if self.grad_noise:
+            g = g + _grad_noise(self.grad_noise, keys, self.dim, self.device
+                                )[..., row_start:row_start + num_rows]
+        return g
+
+    def worker_hessian_rows(self, i, x, key, row_start: int,
+                            num_rows: int):
+        """Rows [row_start, row_start+num_rows) of ``worker_hessian``: a
+        panel of A plus the noise panel (``_sym_noise_rows``)."""
+        rows = _rows_of(self.A[i], row_start, num_rows)
+        if not self.hess_noise:
+            return rows
+        return rows + self.hess_noise * _sym_noise_rows(
+            key, self.dim, row_start, num_rows, self.device)
 
 
 def _worker_het_scales(heterogeneity: float, worker_weights,
@@ -253,14 +371,48 @@ class Logistic:
         Xi, yi = self.X[i], self.y[i]
         z = (Xi @ x) * yi
         s = torch.sigmoid(z) * torch.sigmoid(-z)            # σ'(z)
-        H = (Xi.T * s) @ Xi / yi.shape[0] + self.lam * torch.eye(
-            self.dim, dtype=_F32, device=self.device)
+        H = _gram_rows(Xi, s, 0, self.dim) / yi.shape[0] + self.lam * \
+            torch.eye(self.dim, dtype=_F32, device=self.device)
         if self.hess_noise:
             H = H + self.hess_noise * _sym_noise(key, self.dim, self.device)
         return H
 
     def mean_hessian(self):
         return _logistic_full_hessian(self.X, self.y, self.lam, self.x_star)
+
+    def row_panel(self, row_start: int, num_rows: int) -> "Logistic":
+        """Logistic holds no O(d²) state (X is N×n×d): a model shard
+        keeps it whole, and the ``*_rows`` oracles slice."""
+        return self
+
+    def worker_grad_rows(self, i, x, key, row_start: int, num_rows: int):
+        """Rows [row_start, row_start+num_rows) of ``worker_grad``: the
+        full gradient, sliced (O(n·d) work a shard, no communication)."""
+        return self.worker_grad(i, x, key)[row_start:row_start + num_rows]
+
+    def worker_grads_rows(self, xs, keys, row_start: int, num_rows: int):
+        """Rows [row_start, row_start+num_rows) of ``worker_grads``
+        (..., N, num_rows), contiguous."""
+        return self.worker_grads(xs, keys)[
+            ..., row_start:row_start + num_rows].contiguous()
+
+    def worker_hessian_rows(self, i, x, key, row_start: int,
+                            num_rows: int):
+        """Rows [row_start, row_start+num_rows) of ``worker_hessian``:
+        the Gauss–Newton rows from a column slice of Xᵢ,
+        (Xᵢ[:, rows]ᵀ·σ′) @ Xᵢ / n (``_gram_rows``) — O(n·d) work, a
+        (num_rows, d) result — plus λ on the identity's rows and the
+        noise panel."""
+        Xi, yi = self.X[i], self.y[i]
+        z = (Xi @ x) * yi
+        s = torch.sigmoid(z) * torch.sigmoid(-z)
+        H = _gram_rows(Xi, s, row_start, num_rows) / yi.shape[0] \
+            + self.lam * _eye_rows(self.dim, row_start, num_rows,
+                                   self.device)
+        if self.hess_noise:
+            H = H + self.hess_noise * _sym_noise_rows(
+                key, self.dim, row_start, num_rows, self.device)
+        return H
 
 
 def _logistic_full_grad(X, y, lam, x):

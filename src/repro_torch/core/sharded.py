@@ -37,7 +37,8 @@ exchange their anchored deltas in one all-reduce over ``"pod"``
 (compressed with its own residual when the exchange is), and one
 all-gather over ``"pod"`` after the loop gives every rank ``xs_pods``.
 As in the reference, the aggregation is the collective form: this engine
-launches none of the port's kernels.  Every collective goes through the
+launches none of the port's kernels.  The 2-D engine (``core.sharded2d``)
+runs the same loop on its model shard's coordinates.  Every collective goes through the
 recorder of ``core.collectives``; the result carries its log.
 """
 
@@ -111,22 +112,31 @@ def _local_problem(problem, start: int, n_local: int):
     return dc_replace(problem, **rows)
 
 
-def _sharded_rounds(problem, k_loop, x1, C, chol, hdiag, cost, coll, *,
+def _sharded_rounds(problem, k_loop, x1, C, cost, coll, *, step, cols,
                     axis_name: str, pod_axis: str, start: int,
                     num_workers: int, num_rounds: int, num_regions: int,
-                    controller, mu: float, lr: float, curvature: str,
-                    overlap: bool, qspec=None, comp=None, hspec=None):
-    """This rank's round loop: ``problem`` and ``C`` (n_local, d) hold
-    its workers, from global index ``start``; ``x1`` and the curvature
-    state are replicated.  Returns (xs, cov, comm, min_counts,
-    min_cov_counts, times, stale, cbytes, pbytes, xs_pods): xs (T+2, d)
-    the pods' mean, xs_pods (T+2, P, d) or None for a flat run."""
+                    controller, overlap: bool, qspec=None, comp=None,
+                    hspec=None, fused=None):
+    """This rank's round loop: ``problem`` and ``C`` hold its workers,
+    from global index ``start``; ``x1`` is replicated.  The rank
+    aggregates the coordinates ``cols`` = (row_start, p): all d on the
+    1-D engine, the model shard's on the 2-D engine; ``C`` is (n_local,
+    p), the gradients ``problem.worker_grads_rows``.  ``step(x, g)``
+    takes the round's all-reduced aggregate g (p,) to the new iterate
+    (the curvature's solve); ``fused(x, G, Mx, C)`` -> (x, C), when
+    given, aggregates and steps in one, in place of that all-reduce and
+    ``step``.  Returns (xs, cov, comm, min_counts, min_cov_counts, times,
+    stale, cbytes, pbytes, xs_pods): xs (T+2, d) the pods' mean, xs_pods
+    (T+2, P, d) or None for a flat run."""
     from ..hetero.controller import initial_telemetry
     from ..hetero.cost import pod_exchange_time
+    from ..kernels.region_aggregate import local_region_ids
     N, d, dev = num_workers, x1.shape[0], x1.device
     Q, n_local = num_regions, problem.num_workers
     region_ids = contiguous_regions(d, Q, dev)
     sizes_q = region_sizes(region_ids, Q)
+    p = cols[1]
+    ids_loc = local_region_ids(d, Q, cols[0], p, dev)
     pods = 1 if hspec is None else hspec.pods
     n_pop = N // pods
     me_pod = start // n_pop                  # this rank's pod
@@ -159,28 +169,34 @@ def _sharded_rounds(problem, k_loop, x1, C, chol, hdiag, cost, coll, *,
         if comp is None:
             return coll.all_reduce(y, axis_name, async_op=overlap), err
         return psum_compressed(comp, y, err, coll=coll, dim=axis_name,
-                               n_agg=n_agg, region_ids=region_ids,
+                               n_agg=n_agg, region_ids=ids_loc,
                                num_regions=Q, async_op=overlap)
 
     def round_update(x, C, err, late_buf, s):
         """The local gradients and the single-reduction contribution, up
         to issuing the param all-reduce; then the rank's memory (and late
-        buffer) update.  Returns (pending g, C, err, late_buf)."""
-        Mx = expand_mask(s["M"], region_ids)             # (n_local, d)
-        x_pruned = torch.where(Mx, x[None, :], 0.0)
-        G = problem.worker_grads(x_pruned, s["gk"]) * Mx
-        count_x = s["count_q"].index_select(0, region_ids)
+        buffer) update.  Returns (finish, C, err, late_buf): ``finish()``
+        waits for the all-reduce and returns the new iterate."""
+        Mx_full = expand_mask(s["M"], region_ids)        # (n_local, d)
+        Mx = Mx_full if p == d else expand_mask(s["M"], ids_loc)
+        x_pruned = torch.where(Mx_full, x[None, :], 0.0)
+        G = problem.worker_grads_rows(x_pruned, s["gk"], *cols) * Mx
+        if fused is not None:
+            x_new, C = fused(x, G, Mx, C)
+            return (lambda: x_new), C, err, late_buf
+        count_x = s["count_q"].index_select(0, ids_loc)
         denom = torch.clamp_min(count_x, 1).to(_F32)
         if qspec is None:
             contrib = torch.where((count_x > 0)[None, :], G / denom,
                                   C / n_pop)
             pending, err = psum(contrib.sum(dim=0), err)
-            return pending, torch.where(Mx, G, C), err, late_buf
+            return ((lambda: step(x, pending.wait())),
+                    torch.where(Mx, G, C), err, late_buf)
         on_loc, delays_loc = s["on_time"][local], s["delays"][local]
         # covered: an on-time worker of this rank's pod trained it
         on_pod = s["M_full"].view(pods, n_pop, Q)[me_pod] \
             & s["on_time"].view(pods, n_pop)[me_pod][:, None]
-        covered_x = (on_pod.sum(dim=0) > 0).index_select(0, region_ids)
+        covered_x = (on_pod.sum(dim=0) > 0).index_select(0, ids_loc)
         fresh = torch.where(on_loc[:, None], G, 0.0)
         contrib = torch.where(covered_x[None, :], fresh / denom, C / n_pop)
         pending, err = psum(contrib.sum(dim=0) + late_buf[0], err)
@@ -189,14 +205,8 @@ def _sharded_rounds(problem, k_loop, x1, C, chol, hdiag, cost, coll, *,
                                  max_delay=qspec.max_delay)
         dropped = delays_loc > qspec.max_delay
         C = torch.where(Mx & ~dropped[:, None], G, C)
-        return pending, C, err, _shift_in(late_buf, adds)
-
-    def finish_step(x, g):
-        if curvature == "dense":
-            step = cho_solve(chol, g)
-        else:
-            step = g / project_diag(hdiag, mu)
-        return x - lr * step
+        return ((lambda: step(x, pending.wait())), C, err,
+                _shift_in(late_buf, adds))
 
     def observe(telem, s):
         """Fold round s into the telemetry; -> (telemetry, trace row)."""
@@ -213,9 +223,9 @@ def _sharded_rounds(problem, k_loop, x1, C, chol, hdiag, cost, coll, *,
         wire = _pod_wire_bytes(comp, d)
         flat_charge = (pod_exchange_time(cost, wire),
                        torch.tensor(wire, dtype=_F32, device=dev))
-    err = None if comp is None else torch.zeros(d, dtype=_F32, device=dev)
+    err = None if comp is None else torch.zeros(p, dtype=_F32, device=dev)
     late_buf = None if qspec is None else torch.zeros(
-        (qspec.max_delay, d), dtype=_F32, device=dev)
+        (qspec.max_delay, p), dtype=_F32, device=dev)
     if hspec is not None:
         hcomp = parse_compression(hspec.compression)
         hier_wire = _pod_wire_bytes(hcomp, d)
@@ -231,15 +241,15 @@ def _sharded_rounds(problem, k_loop, x1, C, chol, hdiag, cost, coll, *,
         coll.round = t
         if overlap:
             s = nxt
-            pending, C, err, late_buf = round_update(x, C, err, late_buf, s)
+            finish, C, err, late_buf = round_update(x, C, err, late_buf, s)
             # in flight: fold round t and its diagnostics, sample t+1
             telem, row = observe(telem, s)
             nxt, ctrl_state = sample_round(t + 1, ctrl_state, telem)
-            x = finish_step(x, pending.wait())
+            x = finish()
         else:
             s, ctrl_state = sample_round(t, ctrl_state, telem)
-            pending, C, err, late_buf = round_update(x, C, err, late_buf, s)
-            x = finish_step(x, pending.wait())
+            finish, C, err, late_buf = round_update(x, C, err, late_buf, s)
+            x = finish()
             telem, row = observe(telem, s)
         xs.append(x)
         if hspec is not None and t % hspec.period == 0:
@@ -266,6 +276,33 @@ def _sharded_rounds(problem, k_loop, x1, C, chol, hdiag, cost, coll, *,
         xs_pods = coll.all_gather(xs, pod_axis).permute(1, 0, 2)
         xs = xs_pods.sum(dim=1) / pods
     return (xs, *_stack_rows(rows, (), dev), xs_pods)
+
+
+def _worker_start(coll, num_workers: int, n_data: int, hspec,
+                  axis_name: str, pod_axis: str) -> tuple[int, int]:
+    """(start, n_local): this rank's first worker and its count, pod-major
+    over (``pod_axis``, ``axis_name``)."""
+    pods = 1 if hspec is None else hspec.pods
+    n_local = num_workers // pods // n_data
+    me_pod = 0 if hspec is None else coll.rank(pod_axis)
+    return (me_pod * n_data + coll.rank(axis_name)) * n_local, n_local
+
+
+def _finish(problem, arrays, coll, n_pop: int, record_every: int,
+            losses=None) -> RanlResult:
+    """The rounds' arrays -> the run's RanlResult, with the collective
+    log; ``losses`` (T+2,) when the engine computed them itself."""
+    (xs, cov, comm, min_counts, min_cov, times, stale, cbytes, pbytes,
+     xs_pods) = arrays
+    tau, tau_cov = (int(v) for v in torch.stack(
+        _tau_pair(min_counts, min_cov, n_pop)).tolist())
+    return _subsampled(RanlResult(
+        xs=xs, dist_sq=((xs - problem.x_star) ** 2).sum(dim=-1),
+        losses=problem.losses(xs) if losses is None else losses,
+        coverage=cov, comm_floats=comm, tau_star=tau, tau_covered=tau_cov,
+        round_time=times, max_stale=stale, comm_bytes=cbytes,
+        pod_bytes=pbytes, xs_pods=xs_pods, collectives=tuple(coll.log)),
+        record_every)
 
 
 def _run_sharded(problem, key, opts, *, mesh, axis_name: str = "data",
@@ -298,28 +335,27 @@ def _run_sharded(problem, key, opts, *, mesh, axis_name: str = "data",
         hessian_rank=opts.hessian_rank)
     coll = Collectives(mesh)
     N = problem.num_workers
-    pods = 1 if hspec is None else hspec.pods
-    n_local = N // pods // n_data
-    me_pod = 0 if hspec is None else coll.rank(pod_axis)
-    start = (me_pod * n_data + coll.rank(axis_name)) * n_local
+    start, n_local = _worker_start(coll, N, n_data, hspec, axis_name,
+                                   pod_axis)
     C = C0[start:start + n_local].clone()
     del C0
-    (xs, cov, comm, min_counts, min_cov, times, stale, cbytes, pbytes,
-     xs_pods) = _sharded_rounds(
-        _local_problem(problem, start, n_local), k_loop, x1, C, chol,
-        hdiag, cost, coll, axis_name=axis_name, pod_axis=pod_axis,
-        start=start, num_workers=N, num_rounds=int(opts.num_rounds),
+    mu, lr = cfg["mu"], cfg["lr"]
+
+    def step(x, g):
+        if cfg["curvature"] == "dense":
+            return x - lr * cho_solve(chol, g)
+        return x - lr * (g / project_diag(hdiag, mu))
+
+    arrays = _sharded_rounds(
+        _local_problem(problem, start, n_local), k_loop, x1, C, cost, coll,
+        step=step, cols=(0, problem.dim), axis_name=axis_name,
+        pod_axis=pod_axis, start=start,
+        num_workers=N, num_rounds=int(opts.num_rounds),
         num_regions=int(opts.num_regions), controller=ctrl,
         overlap=bool(opts.overlap), qspec=opts.quorum_spec(),
-        comp=opts.compression_spec(), hspec=hspec, **cfg)
-    tau, tau_cov = (int(v) for v in torch.stack(
-        _tau_pair(min_counts, min_cov, N // pods)).tolist())
-    return _subsampled(RanlResult(
-        xs=xs, dist_sq=((xs - problem.x_star) ** 2).sum(dim=-1),
-        losses=problem.losses(xs), coverage=cov, comm_floats=comm,
-        tau_star=tau, tau_covered=tau_cov, round_time=times,
-        max_stale=stale, comm_bytes=cbytes, pod_bytes=pbytes,
-        xs_pods=xs_pods, collectives=tuple(coll.log)), opts.record_every)
+        comp=opts.compression_spec(), hspec=hspec)
+    pods = 1 if hspec is None else hspec.pods
+    return _finish(problem, arrays, coll, N // pods, opts.record_every)
 
 
 def _gather_rows(coll, arrays, dim: str):

@@ -50,6 +50,18 @@ import torch
 from .launches import LAUNCHES
 
 
+def local_region_ids(dim: int, num_regions: int, offset: int, size: int,
+                     device):
+    """Region id per coordinate of the slice [offset, offset+size) of a
+    ``dim``-coordinate vector partitioned into ``num_regions`` contiguous
+    regions: a model shard of the 2-D engine expands its (N, Q) region
+    masks into masks of its own coordinates with these, so K2 and the
+    plain aggregation work on d-slices."""
+    from ..core.regions import contiguous_regions
+    ids = contiguous_regions(dim, num_regions, device)
+    return ids[offset:offset + size]
+
+
 def _aggregate_kernel(g_ptr, m_ptr, c_ptr, out_c_ptr, out_ptr, x_ptr, h_ptr,
                       N, D, mu, lr, FUSED: tl.constexpr,
                       BLOCK_N: tl.constexpr, BLOCK_D: tl.constexpr):

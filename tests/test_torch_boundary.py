@@ -126,7 +126,7 @@ def test_run_refuses_a_cost_model_on_another_device():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(engine="sharded2d"), dict(journal="run.jsonl"),
+    dict(journal="run.jsonl"),
     dict(journal="run.jsonl", scenario="geo-distributed")],
     ids=str)
 def test_options_outside_the_slice_raise_not_implemented(kw):
@@ -136,13 +136,13 @@ def test_options_outside_the_slice_raise_not_implemented(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(engine="sharded"), dict(overlap=True),
+    dict(engine="sharded"), dict(engine="sharded2d"), dict(overlap=True),
     dict(engine="batch", overlap=True),
     dict(engine="reference", overlap=True)], ids=str)
 def test_sharded_options_raise_the_references_value_errors(kw):
-    """Once NotImplementedError (ROADMAP item 12, now ported): the
-    sharded engine needs a mesh, and ``overlap`` exists only on the
-    sharded engines (``src/repro/api.py:78-84``)."""
+    """Once NotImplementedError (ROADMAP items 12 and 13, now ported):
+    the sharded engines need a mesh, and ``overlap`` exists only on them
+    (``src/repro/api.py:78-84``)."""
     key = prng.PRNGKey(1)
     if kw.get("engine") == "batch":
         key = prng.split(key, 2)
