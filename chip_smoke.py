@@ -60,10 +60,13 @@ the card and times both, then drives the port's paths at full width:
    cuBLAS's row-count-dependent rounding past those bounds, within
    ``FULL_DEPTH_RATIO`` times the gaps of the kernels' plain twins on the
    same weights (see ``phase_serve_consistent``);
-10. models_card_vs_host: both configs at full width cut to 2 layers,
-   batch 1, 128 tokens, f32: logits on the card (kernels) against the
-   CPU (plain twins), within 1e-3 (f32 sums in another order over
-   3000–9000-wide products and 128 recurrence steps);
+10. models_card_vs_host: rwkv6-3b, phi4-mini-3.8b, hymba-1.5b (2560
+   tokens, past its 2048 window), phi3.5-moe-42b-a6.6b, llava-next-
+   mistral-7b (576 projected patches, then 128 tokens) and musicgen-medium
+   at full width cut to 2 layers, batch 1, 128 tokens unless said, f32:
+   logits (and the MoE aux loss) on the card (kernels) against the CPU
+   (plain twins), within 1e-3 (f32 sums in another order over 1600–14336-
+   wide products and up to 2560 recurrence or scan steps);
 11. batch_dense / batch_diag: ``engine="batch"`` over 8 seeds on the dense
    and diag main paths (30 rounds): one seed-batched K1 or K2 launch a
    round (30 in all), each row's integer traces equal to a scan run of
@@ -133,6 +136,25 @@ the card and times both, then drives the port's paths at full width:
    ``torch.cuda.max_memory_allocated``; ms per round and init seconds
    beside the scan run's.
 
+18. train_dense / train_rwkv: RANL (``repro_torch.optim``) on phi4-mini-
+   3.8b and rwkv6-3b at full width cut to 2 layers, f32, N = 4 workers,
+   global batch 8, seq 512, the train CLI's ``RanlLLMConfig``:
+   ``init_state`` then 5 ``train_step``s.  K3 (K4) launches 4 x 2 x 6 =
+   48 times; each round, run again from the same inputs through the
+   plain twins, launches none and is held to the kernels' round: masks
+   (coverage, uplink) equal, loss, params and precond within
+   ``TRAIN_TOL`` (1e-3 for K3, 1e-2 for K4).  init seconds, step seconds
+   split into the per-worker forwards and backwards, the aggregate and
+   the Newton step, tokens a second, peak memory, and the kernel at the
+   train shape in f32 against its bound (K3 also against
+   ``scaled_dot_product_attention``);
+19. train_adamw: the AdamW baseline at train_dense's size, 3 steps on the
+   full batch, against the twins' run (K3 6 launches);
+20. train_cli: ``repro_torch.launch.train.run`` with --smoke on the card:
+   RANL under pareto-stragglers with the resource controller and a 0.75
+   quorum, then AdamW with --checkpoint-dir build/ckpt, restored bit-
+   equal to the trained params.
+
 K1 and K2 are also held against their plain versions at the batch
 engine's (8, 32, 8192) and (8, 32, 4096), a ragged (3, 7, 513) and B = 1,
 and their row's ``ms``/``bound_ms`` are those batched shapes'.
@@ -154,6 +176,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -2459,37 +2482,445 @@ def consistent_readings(torch, seeds):
                             "plain_twins": plain}))
 
 
+def to_cpu(node):
+    if isinstance(node, dict):
+        return {k: to_cpu(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [to_cpu(v) for v in node]
+    return node.cpu()
+
+
+# models_card_vs_host: (arch, tokens).  hymba runs past its 2048-token
+# window, so that the window bites in K3; llava's 576 projected patches
+# take the first positions, then 128 text tokens.  llama4-scout is left
+# out: its 202048 x 5120 vocabulary and 16 experts of d_ff 8192 make the
+# host's side too slow.
+CARD_VS_HOST = (("rwkv6-3b", 128), ("phi4-mini-3.8b", 128),
+                ("hymba-1.5b", 2560), ("phi3.5-moe-42b-a6.6b", 128),
+                ("llava-next-mistral-7b", 576 + 128), ("musicgen-medium", 128))
+
+
 def phase_card_vs_host(torch, report):
     """The same parameters through ``forward`` on the card (kernels) and
-    on the CPU (plain twins): full width, 2 layers, batch 1, 128 tokens."""
+    on the CPU (plain twins): full width, 2 layers, batch 1, f32, within
+    1e-3 (f32 sums in another order over 1600–14336-wide products, 128
+    recurrence or scan steps and, for hymba, 2560)."""
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_model
-    for arch in ("rwkv6-3b", "phi4-mini-3.8b"):
+    for arch, seq in CARD_VS_HOST:
         cfg = dataclasses.replace(get_config(arch), num_layers=2)
         g = torch.Generator(device="cuda").manual_seed(3)
         params = init_model(cfg, g, torch.float32)
-        toks = torch.randint(0, cfg.vocab_size, (1, 128), device="cuda",
-                             generator=g, dtype=torch.int32)
-
-        def to_cpu(node):
-            if isinstance(node, dict):
-                return {k: to_cpu(v) for k, v in node.items()}
-            if isinstance(node, list):
-                return [to_cpu(v) for v in node]
-            return node.cpu()
+        shape = (1, seq) + ((cfg.num_codebooks,) if cfg.modality == "audio"
+                            else ())
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, shape,
+                                         device="cuda", generator=g,
+                                         dtype=torch.int32)}
+        if cfg.modality == "vision":
+            batch["patch_embeds"] = torch.randn(
+                (1, cfg.vision_tokens, cfg.vision_embed_dim), device="cuda",
+                generator=g)
         with torch.inference_mode():
-            card, _, _ = forward(params, {"tokens": toks}, cfg)
-            host, _, _ = forward(to_cpu(params), {"tokens": toks.cpu()}, cfg)
+            card, _, aux = forward(params, batch, cfg)
+            host, _, host_aux = forward(to_cpu(params), to_cpu(batch), cfg)
         err = (card.cpu() - host).abs().max().item()
         if not torch.allclose(card.cpu(), host, rtol=1e-3, atol=1e-3):
             raise AssertionError(f"{arch}: card vs host max |err| {err}")
+        aux_err = abs(aux.item() - host_aux.item())
+        if aux_err > 1e-3 * max(1.0, abs(host_aux.item())):
+            raise AssertionError(f"{arch}: aux loss card {aux.item()} vs "
+                                 f"host {host_aux.item()}")
         report[f"card_vs_host_{arch}"] = {
-            "logits_max_abs_err": err,
-            "logits_max_abs": host.abs().max().item()}
-        log(f"models_card_vs_host {arch} (2 layers, f32): logits max |err| "
-            f"{err:.3e} (|logits| up to {host.abs().max().item():.2f})")
+            "tokens": seq, "logits_max_abs_err": err,
+            "logits_max_abs": host.abs().max().item(),
+            "aux": host_aux.item(), "aux_abs_err": aux_err,
+            "params": param_count(params)}
+        log(f"models_card_vs_host {arch} (2 layers, f32, {seq} tokens, "
+            f"{param_count(params) / 1e9:.3f} B params): logits max |err| "
+            f"{err:.3e} (|logits| up to {host.abs().max().item():.2f}); aux "
+            f"{host_aux.item():.6f}, |err| {aux_err:.3e}")
         del params, card, host
         torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# RANL training at full width (phases train_*)
+# --------------------------------------------------------------------------
+
+TRAIN = dict(workers=4, batch=8, seq=512, steps=5, layers=2)
+# a RANL round with K3/K4 against the same round, from the same params
+# and state, through their plain twins, x each leaf's max |value|
+# (params, precond) and rtol (loss).  The kernels' f32 forwards are held
+# to 2e-4 of the twins' (phase kernels_attn_wkv), and a round's Newton
+# step divides the gradients' rounding by curvatures as small as its
+# floor (on the CPU, one rwkv6 round of the port against the reference's
+# from the same state differs by up to 9.2e-4 of a leaf's max).  rwkv6's
+# time mix also divides each head's wkv output by its rms (ln_x), so a
+# head whose output is small magnifies K4's rounding (up to 3.2e-4
+# absolute at the train shape) into the gradient coordinates it reaches,
+# and the precond squares them: measured on an H100 80GB HBM3 at 700 W,
+# params 2.19e-3 and precond 3.72e-3 of a leaf's max (phi4-mini: 2.3e-6
+# and 3.3e-6).  Each round is held from the same inputs: these runs raise
+# their loss (phi4-mini 12.7 -> 52.2 in 5 rounds), and along such a
+# trajectory two runs that differ in the last bits drift apart whatever
+# computes them.
+TRAIN_TOL = {"flash_attention": 1e-3, "rwkv_wkv": 1e-2}
+# AdamW normalises each coordinate by its own |gradient|, so a coordinate
+# whose gradient is rounding-sized takes a step of ±lr on either run:
+# at most this share of a leaf's coordinates may leave K3's TRAIN_TOL
+ADAM_SIGN_SHARE = 1e-3
+
+
+def train_setup(torch, arch, seq):
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import init_model, lm_loss
+    cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN["layers"])
+    g = torch.Generator(device="cuda").manual_seed(5)
+    params = init_model(cfg, g, torch.float32)
+    batches = [make_batch(cfg, g, TRAIN["batch"], seq, pattern="bigram")
+               for _ in range(1 + TRAIN["steps"])]
+
+    def loss_fn(p, b):
+        return lm_loss(p, b, cfg, q_chunk=min(1024, seq),
+                       kv_chunk=min(1024, seq))
+    return cfg, params, batches, loss_fn
+
+
+def to_card(node):
+    if isinstance(node, dict):
+        return {k: to_card(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [to_card(v) for v in node]
+    return node.cuda()
+
+
+def twins_round(torch, label, fn, want, want_metrics, tol):
+    """``fn`` through the plain twins (no launch), held to the kernels'
+    round ``want`` (a host tree of params and precond) and its metrics:
+    coverage and uplink equal, loss within ``tol``.  Returns the worst
+    |err| / leaf max of params and precond."""
+    from repro_torch.kernels import LAUNCHES
+    before = dict(LAUNCHES)
+    with plain_twins():
+        got, metrics = fn()
+    if LAUNCHES != before:
+        raise AssertionError(f"{label} through the twins launched "
+                             f"{LAUNCHES} (before {before})")
+    if metrics is not None:
+        for k in ("coverage", "uplink_frac"):
+            if float(metrics[k]) != want_metrics[k]:
+                raise AssertionError(f"{label}: {k} {want_metrics[k]} vs "
+                                     f"{float(metrics[k])} through the twins")
+        loss = float(metrics["loss"])
+        if not math.isfinite(want_metrics["loss"]) or abs(
+                want_metrics["loss"] - loss) > tol * abs(loss):
+            raise AssertionError(f"{label}: loss {want_metrics['loss']} vs "
+                                 f"{loss} through the twins")
+    return {name: leaves_close(torch, want[name], got[name],
+                               f"{label} {name}", tol) for name in want}
+
+
+def ranl_run(torch, params, batches, rcfg, loss_fn, tol):
+    """init_state, then one train_step a batch, each timed to a sync; each
+    round is also run from the same inputs through the plain twins and
+    held to the kernels' (the kernels' outputs wait on the host
+    meanwhile).  Returns (params, state, metrics, init seconds, step
+    seconds, the worst twin gaps)."""
+    from repro_torch import prng
+    from repro_torch.optim import init_state, train_step
+    key = prng.PRNGKey(0)
+    state, init_s = sync_time(torch, lambda: init_state(
+        params, loss_fn, batches[0], rcfg, key))
+    gaps = [twins_round(
+        torch, "init_state", lambda: ({"precond": init_state(
+            params, loss_fn, batches[0], rcfg, key)["precond"]}, None),
+        {"precond": to_cpu(state["precond"])}, None, tol)]
+    p, metrics, step_s = params, [], []
+    for t, b in enumerate(batches[1:]):
+        (p1, s1, m), secs = sync_time(torch, lambda: train_step(
+            p, state, b, key, loss_fn=loss_fn, cfg=rcfg))
+        metrics.append({k: float(v) for k, v in m.items()})
+        step_s.append(secs)
+        host = to_cpu({"params": p1, "state": s1})
+        del p1, s1
+        torch.cuda.empty_cache()
+
+        def twin():
+            q, r, mt = train_step(p, state, b, key, loss_fn=loss_fn,
+                                  cfg=rcfg)
+            return {"params": q, "precond": r["precond"]}, mt
+        gaps.append(twins_round(
+            torch, f"round {t}", twin,
+            {"params": host["params"], "precond": host["state"]["precond"]},
+            metrics[-1], tol))
+        del p, state
+        torch.cuda.empty_cache()
+        p, state = to_card(host["params"]), to_card(host["state"])
+        del host
+    worst = {k: max(g.get(k, 0.0) for g in gaps)
+             for k in ("params", "precond")}
+    return p, state, metrics, init_s, step_s, worst
+
+
+def step_split(torch, params, state, batch, rcfg, loss_fn):
+    """One round's parts, each timed to a sync: the per-worker forwards
+    and backwards, the aggregate, the Newton step."""
+    from repro_torch import prng
+    from repro_torch.core.masks import sample_masks
+    from repro_torch.optim.ranl_llm import (aggregate, newton_step,
+                                            per_worker_grads, region_layout)
+    (_, G), grads_s = sync_time(torch, lambda: per_worker_grads(
+        loss_fn, params, batch, rcfg.num_workers))
+    masks = sample_masks(rcfg.policy, prng.PRNGKey(1), 0, rcfg.num_workers,
+                         region_layout(params)[0], "cuda")
+    (g, _, _), agg_s = sync_time(torch, lambda: aggregate(
+        G, state["memory"], masks, params, rcfg))
+    _, newton_s = sync_time(torch, lambda: newton_step(
+        params, g, state["precond"], rcfg))
+    return {"grads_s": grads_s, "aggregate_s": agg_s, "newton_s": newton_s}
+
+
+def leaves_close(torch, got, want, label, tol, share=0.0):
+    """Every leaf of ``got`` within ``tol`` x the leaf's max |value| of
+    ``want`` (either on the host or the card; compared on the card a
+    leaf at a time); with ``share``, that share of a leaf's elements may
+    leave it.  Returns the worst |err| / max (logged where some left)."""
+    from repro_torch.tree import leaf_paths, get, num_layers
+    worst = 0.0
+    for keys, layered in leaf_paths(want):
+        for q in (range(num_layers(want)) if layered else (None,)):
+            a, b = get(got, keys, q).cuda(), get(want, keys, q).cuda()
+            scale = max(b.abs().max().item(), 1e-30)
+            err = (a - b).abs()
+            out = (err > tol * scale).float().mean().item()
+            if out > share:
+                raise AssertionError(
+                    f"{label} {'/'.join(keys)}[{q}]: max |err| "
+                    f"{err.max().item()} x max {scale}, {out} of it past "
+                    f"{tol}")
+            if out:
+                log(f"{label} {'/'.join(keys)}[{q}]: {out:.3e} of the leaf "
+                    f"past {tol} (allowed {share}), max |err| "
+                    f"{err.max().item() / scale:.3e} x max")
+            worst = max(worst, err.max().item() / scale)
+            del a, b, err
+    return worst
+
+
+def kernel_at_train_shape(torch, kernel, cfg, seq):
+    """The path's kernel at its train shape in f32 (one worker's forward
+    of one layer) against its plain twin: max |err|, ms on the card, the
+    twin's ms, the bound and (K3) scaled_dot_product_attention's ms."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv_wkv as wkv
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b = TRAIN["batch"] // TRAIN["workers"]
+    f32 = torch.float32
+    if kernel == "flash_attention":
+        shape = (b, seq, cfg.num_heads, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        nb, fl, peak = attn_bound(*shape, 0, "float32")
+        n_sets = max(2, -(-2 * L2_BYTES // nb))
+        sets = [attn_inputs(torch, *shape, f32, gen) for _ in range(n_sets)]
+        fn, twin = fa.flash_attention, ref.flash_attention_ref
+    else:
+        shape = (b, seq, cfg.num_rwkv_heads, cfg.rwkv_head_dim)
+        nb, fl, peak = wkv_bound(*shape, "float32")
+        n_sets = max(2, -(-2 * L2_BYTES // nb))
+        sets = [wkv_inputs(torch, *shape, f32, gen) for _ in range(n_sets)]
+        fn, twin = wkv.rwkv_wkv, ref.rwkv_wkv_ref
+    got, want = fn(*sets[0]), twin(*sets[0])
+    got, want = (got, want) if kernel == "flash_attention" else (got[0],
+                                                                 want[0])
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=2e-4, atol=2e-4):
+        raise AssertionError(f"{kernel} at {shape} f32: max |err| {err}")
+    row = {"shape": list(shape), "dtype": "float32", "max_abs_err": err,
+           "ms": device_ms(torch, fn, sets),
+           "plain_ms": device_ms(torch, twin, sets[:2]),
+           **bound_row(nb, fl, peak)}
+    if kernel == "flash_attention":
+        from repro_torch.kernels.flash_attention import route
+        row["body"] = route(f32, shape[-1])
+        row["library_ms"], _ = library_attention_ms(torch, sets)
+    del sets
+    return row
+
+
+def phase_train(torch, report, launches, arch, kernel, seq):
+    """RANL at full width cut to 2 layers, f32: N = 4 workers, global
+    batch 8, the CLI's RanlLLMConfig; init_state, then 5 train_steps.
+    The kernel launches N x L x (1 + 5) times; each round run again from
+    the same inputs through the plain twins launches none, and is held to
+    it: masks (coverage, uplink) equal, loss, params and precond within
+    TRAIN_TOL[kernel]."""
+    from repro_torch.optim import RanlLLMConfig
+    cfg, params, batches, loss_fn = train_setup(torch, arch, seq)
+    rcfg = RanlLLMConfig(num_workers=TRAIN["workers"], keep_prob=0.7,
+                         mu=1e-4, lr=1.0)
+    n = param_count(params)
+    torch.cuda.reset_peak_memory_stats()
+    (p, state, metrics, init_s, step_s, gaps), total_s, counts = counted(
+        torch, launches, lambda: ranl_run(torch, params, batches, rcfg,
+                                          loss_fn, TRAIN_TOL[kernel]))
+    peak = torch.cuda.max_memory_allocated()
+    want = TRAIN["workers"] * TRAIN["layers"] * (1 + TRAIN["steps"])
+    if counts != {**ZERO, kernel: want}:
+        raise AssertionError(f"train {arch}: launches {counts}, expected "
+                             f"{kernel}: {want}")
+    del params
+    split = step_split(torch, p, state, batches[1], rcfg, loss_fn)
+    del p, state
+    torch.cuda.empty_cache()
+    tokens = TRAIN["batch"] * seq
+    warm = statistics.median(step_s[1:])
+    k_row = kernel_at_train_shape(torch, kernel, cfg, seq)
+    per_step = TRAIN["workers"] * TRAIN["layers"]
+    row = {"arch": arch, "params": n, "layers": TRAIN["layers"],
+           "workers": TRAIN["workers"], "batch": TRAIN["batch"], "seq": seq,
+           "steps": TRAIN["steps"], "init_state_s": init_s,
+           "step_s": step_s, "warm_step_s": warm, "split": split,
+           "tokens_per_s": tokens / warm, "peak_gb": peak / 1e9,
+           "launches": counts, "losses": [m["loss"] for m in metrics],
+           "coverage": [m["coverage"] for m in metrics],
+           "uplink_frac": [m["uplink_frac"] for m in metrics],
+           "params_max_rel_err": gaps["params"],
+           "precond_max_rel_err": gaps["precond"], "phase_s": total_s,
+           "kernel": k_row,
+           "kernel_share_of_step": per_step * k_row["ms"] / 1e3 / warm}
+    report[f"train_{'rwkv' if kernel == 'rwkv_wkv' else 'dense'}"] = row
+    report.setdefault(kernel, {})[f"train_{arch}_f32"] = k_row
+    log(f"train {arch} (2 layers, {n / 1e9:.3f} B params, f32, N = 4, "
+        f"batch 8 x {seq}): init_state {init_s:.3f} s; steps "
+        f"{[round(x, 4) for x in step_s]} s (warm median {warm:.4f} s: "
+        f"grads {split['grads_s']:.4f}, aggregate {split['aggregate_s']:.4f}"
+        f", Newton {split['newton_s']:.4f}); {tokens / warm:.0f} tokens/s; "
+        f"peak {peak / 1e9:.2f} GB; launches {counts}; losses "
+        f"{row['losses']}; each round vs the same round through the twins: "
+        f"params / precond within {gaps['params']:.3e} / "
+        f"{gaps['precond']:.3e} x leaf max")
+    log(f"train {arch}: {kernel} at {tuple(k_row['shape'])} f32 "
+        f"{k_row['ms']:.5f} ms on the card (plain {k_row['plain_ms']:.5f}, "
+        f"library {k_row.get('library_ms')}), bound {k_row['bound_ms']:.5f}"
+        f" ms by {k_row['bound_by']}; {per_step} a step = "
+        f"{row['kernel_share_of_step']:.2%} of the warm step")
+    del batches
+    torch.cuda.empty_cache()
+
+
+def adamw_run(torch, params, batches, loss_fn):
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_step
+    from repro_torch.optim.first_order import value_and_grad
+    acfg = AdamWConfig(lr=1e-3)
+    state = adamw_init(params, acfg)
+    p, losses, step_s = params, [], []
+    for b in batches:
+        def step():
+            loss, grads = value_and_grad(loss_fn, p, b)
+            return (*adamw_step(p, state, grads, acfg), float(loss))
+        (p, state, loss), secs = sync_time(torch, step)
+        losses.append(loss)
+        step_s.append(secs)
+    return p, losses, step_s
+
+
+def phase_train_adamw(torch, report, launches):
+    """The AdamW baseline at train_dense's size: 3 steps on the full batch
+    (the CLI's lr 1e-3), against the same run through the twins: K3 L x 3
+    times, none through the twins; losses within TRAIN_TOL, params within
+    it but for ``ADAM_SIGN_SHARE`` of a leaf."""
+    arch, seq = "phi4-mini-3.8b", TRAIN["seq"]
+    cfg, params, batches, loss_fn = train_setup(torch, arch, seq)
+    batches = batches[:3]
+    torch.cuda.reset_peak_memory_stats()
+    (p, losses, step_s), _, counts = counted(
+        torch, launches, lambda: adamw_run(torch, params, batches, loss_fn))
+    peak = torch.cuda.max_memory_allocated()
+    if counts != {**ZERO, "flash_attention": TRAIN["layers"] * 3}:
+        raise AssertionError(f"train_adamw: launches {counts}")
+    got = to_cpu(p)
+    del p
+    with plain_twins():
+        (pp, plain_losses, _), _, pcounts = counted(
+            torch, launches, lambda: adamw_run(torch, params, batches,
+                                               loss_fn))
+    if any(pcounts.values()):
+        raise AssertionError(f"train_adamw twins: launches {pcounts}")
+    want = to_cpu(pp)
+    del pp
+    for t, (a, b) in enumerate(zip(losses, plain_losses)):
+        if not math.isfinite(a) or abs(a - b) > TRAIN_TOL[
+                "flash_attention"] * abs(b):
+            raise AssertionError(f"train_adamw step {t}: loss {a} vs {b}")
+    tol = TRAIN_TOL["flash_attention"]
+    err = leaves_close(torch, got, want, "train_adamw params", tol,
+                       share=ADAM_SIGN_SHARE)
+    warm = statistics.median(step_s[1:])
+    report["train_adamw"] = {
+        "arch": arch, "layers": TRAIN["layers"], "batch": TRAIN["batch"],
+        "seq": seq, "steps": 3, "step_s": step_s, "warm_step_s": warm,
+        "tokens_per_s": TRAIN["batch"] * seq / warm, "peak_gb": peak / 1e9,
+        "launches": counts, "losses": losses, "twin_losses": plain_losses,
+        "params_max_rel_err": err}
+    log(f"train_adamw {arch} (2 layers, f32, batch 8 x {seq}): steps "
+        f"{[round(x, 4) for x in step_s]} s; "
+        f"{TRAIN['batch'] * seq / warm:.0f} tokens/s; peak {peak / 1e9:.2f} "
+        f"GB; launches {counts}; losses {losses} (twins {plain_losses}); "
+        f"params vs the twins' run {err:.3e} x leaf max")
+    del params, batches, got, want
+    torch.cuda.empty_cache()
+
+
+def phase_train_cli(torch, report):
+    """``repro_torch.launch.train.run`` on the card with --smoke: RANL
+    under pareto-stragglers with the resource controller and a 0.75
+    quorum, then AdamW with a checkpoint, restored bit-equal to the
+    trained params."""
+    import io
+    from repro_torch.checkpoint import restore
+    from repro_torch.launch import train as cli
+    from repro_torch.tree import leaves
+    ckpt = os.path.join(HERE, "build", "ckpt")
+    saved = {}
+    save = cli.save
+
+    def keep(tree, directory, **kw):
+        saved["params"] = tree
+        return save(tree, directory, **kw)
+    out = {}
+    for label, argv in (
+            ("ranl_hetero", ["--smoke", "--steps", "4", "--scenario",
+                             "pareto-stragglers", "--controller",
+                             "resource:keep=0.7", "--quorum", "0.75"]),
+            ("adamw_checkpoint", ["--smoke", "--steps", "4", "--optimizer",
+                                  "adamw", "--checkpoint-dir", ckpt])):
+        buf = io.StringIO()
+        cli.save = keep
+        try:
+            with contextlib.redirect_stdout(buf):
+                (hist, secs) = sync_time(torch, lambda: cli.run(argv))
+        finally:
+            cli.save = save
+        lines = buf.getvalue().strip().splitlines()
+        final = json.loads(lines[-1])
+        if not all(math.isfinite(final[k]) for k in ("final_loss",
+                                                   "first_loss")):
+            raise AssertionError(f"train_cli {label}: {lines[-1]}")
+        out[label] = {"seconds": secs, "final": final,
+                      "steps": len(hist), "lines": lines[-3:]}
+        log(f"train_cli {label}: {secs:.2f} s; " + " | ".join(lines[-3:]))
+    like = saved["params"]
+    back = restore(like, ckpt)
+    if not all(torch.equal(a, b) for a, b in zip(leaves(back),
+                                                 leaves(like))):
+        raise AssertionError("train_cli: the restored checkpoint differs "
+                             "from the trained params")
+    out["checkpoint_restored_bit_equal"] = True
+    log(f"train_cli: checkpoint in {ckpt} restored bit-equal "
+        f"({len(leaves(like))} tensors)")
+    report["train_cli"] = out
 
 
 def launches_by_path(report):
@@ -2604,7 +3035,16 @@ def main(argv=None) -> int:
             ("serve_consistent", lambda: phase_serve_consistent(torch,
                                                                 report)),
             ("models_card_vs_host", lambda: phase_card_vs_host(torch,
-                                                               report))):
+                                                               report)),
+            ("train_dense", lambda: phase_train(
+                torch, report, launches, "phi4-mini-3.8b", "flash_attention",
+                TRAIN["seq"])),
+            ("train_rwkv", lambda: phase_train(
+                torch, report, launches, "rwkv6-3b", "rwkv_wkv",
+                TRAIN["seq"])),
+            ("train_adamw", lambda: phase_train_adamw(torch, report,
+                                                      launches)),
+            ("train_cli", lambda: phase_train_cli(torch, report))):
         t0 = time.time()
         try:
             fn()

@@ -22,6 +22,7 @@ from .convex import Logistic, Quadratic, make_logistic, make_quadratic  # noqa: 
 from .hessian import (  # noqa: F401
     blocked_cho_solve,
     blocked_cholesky,
+    fisher_diag,
     hutchinson_diag,
     project_diag,
     project_psd,

@@ -281,3 +281,16 @@ def hutchinson_diag(grad_fn, params, key, num_samples: int = 8):
         hz = torch.func.jvp(grad_fn, (params,), (z,))[1]
         probes.append(z * hz)
     return torch.stack(probes).sum(dim=0) / num_samples
+
+
+def fisher_diag(grad_fn, params, keys):
+    """Empirical-Fisher diagonal: the mean over ``keys`` of the squared
+    gradients ``grad_fn(params, key)`` (a parameter tree, or a tensor).
+    ``keys``: stacked ``prng`` keys (K, 2); one gradient a key, in order."""
+    from ..tree import tree_map
+    keys = prng.as_key(keys)
+    total = None
+    for k in keys:
+        sq = tree_map(torch.square, grad_fn(params, k))
+        total = sq if total is None else tree_map(torch.add, total, sq)
+    return tree_map(lambda a: a / len(keys), total)

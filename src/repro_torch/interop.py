@@ -103,3 +103,40 @@ def model_params_from_numpy(cfg, tree, device=None, dtype=None):
     params["layers"] = [convert(tree["layers"], i)
                         for i in range(cfg.num_layers)]
     return params
+
+
+def params_to_numpy(cfg, params):
+    """The port's model parameters -> the reference's layout: nested dicts
+    of numpy arrays with the layers stacked on a leading L axis (the
+    inverse of ``model_params_from_numpy``; bf16 widens to f32)."""
+    from .tree import stacked, to_numpy
+    if len(params["layers"]) != cfg.num_layers:
+        raise ValueError(f"{cfg.name} has {cfg.num_layers} layers, the "
+                         f"parameters {len(params['layers'])}")
+    return stacked(params, to_numpy)
+
+
+def ranl_state_from_numpy(cfg, state, device=None):
+    """The reference's RANL state -> the port's.
+
+    ``state``: ``{"step", "precond", "memory"}`` as nested dicts of numpy
+    arrays, as ``repro.optim.init_state`` returns it.  ``precond`` is
+    shaped like the parameters; ``memory`` has a leading worker axis, so
+    its per-layer leaves are (N, L, ...) and layer i is ``[:, i]``; an
+    int8 memory leaf ``{"q", "scale"}`` is sliced in both."""
+    dev = resolve_device(device)
+
+    def memory(node, layer=None):
+        if isinstance(node, dict):
+            return {k: memory(v, layer) for k, v in node.items()}
+        a = np.asarray(node)
+        return _tensor(a if layer is None else a[:, layer], dev, None)
+
+    mem = state["memory"]
+    port_mem = {k: memory(v) for k, v in mem.items() if k != "layers"}
+    port_mem["layers"] = [memory(mem["layers"], i)
+                          for i in range(cfg.num_layers)]
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32),
+            "precond": model_params_from_numpy(cfg, state["precond"], dev),
+            "memory": port_mem}

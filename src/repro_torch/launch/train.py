@@ -1,0 +1,292 @@
+"""The train CLI: RANL (default) or the AdamW baseline.
+
+Port of the reference's ``launch/train.py``: the same flags, checks and
+printed lines, ending in one JSON line ``{"final_loss", "first_loss"}``.
+Runs on the CUDA card unless ``--device cpu`` is given:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \
+      --steps 20 --batch 8 --seq 64 --workers 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b --smoke
+
+Parameters are random from a ``torch.Generator`` seeded with ``--seed``,
+in f32, and the batches come from ``data.make_batch`` on the same
+generator (other numbers than the reference's threefry batches).  The
+round keys are the reference's (``prng``), so the masks, the simulated
+clock of ``--scenario``/``--controller``/``--quorum`` and the region
+allocation follow the reference's draws.  Not ported yet:
+``--data-shards``/``--model-shards``/``--pods`` above 1 (ROADMAP Queue 1
+item 14c), ``--journal`` and ``--trace`` (item 15); the port has no
+compiled HLO for ``--dump-hlo`` to write.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from .. import prng
+from ..checkpoint import save
+from ..configs import get_config, smoke_variant
+from ..data import make_batch
+from ..device import resolve_device
+from ..models import init_model, lm_loss
+from ..optim import (AdamWConfig, RanlLLMConfig, adamw_init, adamw_step,
+                     init_state, train_step)
+from ..optim.first_order import value_and_grad
+
+_SHARDED_ITEM = ("ROADMAP Queue 1 item 14c (sharded deep-net training on "
+                 "torch.distributed)")
+_OBS_ITEM = "ROADMAP Queue 1 item 15 (obs/: journal, trace)"
+
+
+def build_loss(cfg, q_chunk=1024, kv_chunk=1024):
+    def loss_fn(params, batch):
+        return lm_loss(params, batch, cfg, q_chunk=q_chunk,
+                       kv_chunk=kv_chunk)
+    return loss_fn
+
+
+def _parser():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="phi4-mini-3.8b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-runnable)")
+    ap.add_argument("--optimizer", default="ranl",
+                    choices=["ranl", "adamw"])
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--data-shards", type=int, default=1,
+                    help="shard the worker/batch axes over this many "
+                         "devices (not ported yet above 1)")
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="shard parameter/tensor axes over this many "
+                         "devices (not ported yet above 1)")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="prepend a 'pod' axis to the mesh (not ported "
+                         "yet above 1)")
+    ap.add_argument("--dump-hlo", default="", metavar="PATH",
+                    help="the reference's compiled-HLO report; the port "
+                         "compiles no HLO, so this exits")
+    ap.add_argument("--scenario", default="",
+                    help="named cluster scenario (repro_torch.hetero), "
+                         "e.g. 'pareto-stragglers' or 'churn:period=5' — "
+                         "prices every round under the per-worker cost "
+                         "model, applies its availability dynamics to the "
+                         "masks, and logs simulated wall-clock (sim_s)")
+    ap.add_argument("--controller", default="",
+                    help="closed-loop mask controller, e.g. "
+                         "'resource:keep=0.7' or 'staleness-bounded:s=4' "
+                         "— allocates each round's regions from the "
+                         "previous round's telemetry instead of the "
+                         "open-loop policy")
+    ap.add_argument("--quorum", type=float, default=0.0,
+                    help="semi-synchronous rounds: commit once this "
+                         "fraction of regions has on-time coverage and "
+                         "DROP late workers from the step. 0 = "
+                         "synchronous. Needs --scenario/--controller")
+    ap.add_argument("--quorum-tau", type=int, default=1,
+                    help="per-region on-time coverage floor for "
+                         "--quorum (0 = full participating coverage)")
+    ap.add_argument("--compression", default="",
+                    choices=["", "int8", "bf16"],
+                    help="lossy uplink compression of the per-worker "
+                         "gradients before the aggregate (RANL only; "
+                         "empty = exact f32 wire)")
+    ap.add_argument("--keep-prob", type=float, default=0.7)
+    ap.add_argument("--mu", type=float, default=1e-4)
+    ap.add_argument("--lr", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pattern", default="bigram",
+                    choices=["bigram", "uniform"])
+    ap.add_argument("--checkpoint-dir", default="")
+    ap.add_argument("--log-every", type=int, default=1)
+    ap.add_argument("--journal", default="", metavar="PATH",
+                    help="structured run journal (not ported yet)")
+    ap.add_argument("--trace", default="", metavar="PATH",
+                    help="span trace of the run (not ported yet)")
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card; 'cpu' runs on the host")
+    return ap
+
+
+def _check(args):
+    """The reference's SystemExit checks, then what is not ported yet."""
+    if args.dump_hlo and args.optimizer != "ranl":
+        raise SystemExit("--dump-hlo reports the RANL train step; rerun "
+                         "with --optimizer ranl (the baseline optimizers "
+                         "have no lowered step to analyze here)")
+    if args.quorum and not (args.scenario or args.controller):
+        raise SystemExit("--quorum needs the simulated cluster clock — "
+                         "pass --scenario and/or --controller")
+    if args.quorum and not 0.0 < args.quorum <= 1.0:
+        raise SystemExit(f"--quorum {args.quorum} must be in (0, 1]")
+    if (args.scenario or args.controller) and args.optimizer != "ranl":
+        raise SystemExit("--scenario/--controller drive the RANL "
+                         "region-mask loop; rerun with --optimizer ranl")
+    if args.compression and args.optimizer != "ranl":
+        raise SystemExit("--compression shapes the RANL uplink; rerun "
+                         "with --optimizer ranl")
+    if args.pods < 1:
+        raise SystemExit(f"--pods {args.pods} must be >= 1")
+    for flag, value in (("--data-shards", args.data_shards),
+                        ("--model-shards", args.model_shards),
+                        ("--pods", args.pods)):
+        if value > 1:
+            raise NotImplementedError(
+                f"{flag} {value}: sharded training is not ported yet; "
+                f"see {_SHARDED_ITEM}")
+    for flag, value in (("--journal", args.journal),
+                        ("--trace", args.trace)):
+        if value:
+            raise NotImplementedError(
+                f"{flag} is not ported yet; see {_OBS_ITEM}")
+    if args.dump_hlo:
+        raise SystemExit("--dump-hlo: the PyTorch port runs eagerly and "
+                         "compiles no HLO to write or analyze")
+
+
+class _Hetero:
+    """The closed-loop cluster simulation, host-side across steps: the
+    controller's state and telemetry, each round's mask allocation, and
+    the simulated clock."""
+
+    def __init__(self, args, params, ko, device):
+        from ..hetero import (initial_telemetry, make_controller,
+                              make_scenario, uniform_cost)
+        from ..optim import region_layout, region_param_counts
+        self.args, self.device = args, device
+        self.num_regions, _, _ = region_layout(params)
+        scen = (make_scenario(args.scenario, prng.fold_in(ko, 71),
+                              args.workers, device=device)
+                if args.scenario else None)
+        self.cost = scen.cost if scen else uniform_cost(args.workers, device)
+        self.ctrl = make_controller(
+            args.controller if args.controller
+            else f"policy:keep={args.keep_prob}")
+        self.sizes_q = region_param_counts(params)
+        self.ctrl_state = self.ctrl.init_state(args.workers,
+                                               self.num_regions, device)
+        self.telem = initial_telemetry(args.workers, self.num_regions,
+                                       device)
+        self.sim_s = 0.0
+        if scen:
+            print(f"scenario: {scen.name} (controller "
+                  f"{args.controller or 'policy shim'})")
+
+    def _work(self, masks):
+        return (masks * self.sizes_q[None, :]).sum(dim=1)
+
+    def masks(self, ko, t):
+        from ..hetero import available, quorum_split, worker_times
+        kt = prng.fold_in(ko, t)
+        masks, self.ctrl_state = self.ctrl.step(
+            self.ctrl_state, self.telem, kt, t, self.args.workers,
+            self.num_regions, self.device)
+        masks = masks & available(self.cost, kt, t)[:, None]
+        if self.args.quorum:
+            # the round commits at the quorum deadline and late workers
+            # sit it out (their regions ride the memory path)
+            times = worker_times(self.cost, self._work(masks), t)
+            deadline, on_time, _ = quorum_split(
+                times, masks, quorum=self.args.quorum,
+                quorum_tau=self.args.quorum_tau or None)
+            masks = masks & on_time[:, None]
+            self.deadline = float(deadline)
+        return masks
+
+    def observe(self, masks, t):
+        from ..hetero import next_telemetry, worker_times
+        work = self._work(masks)
+        times = worker_times(self.cost, work, t)
+        self.telem = next_telemetry(self.telem, masks.sum(dim=0), work,
+                                    times)
+        self.sim_round_s = (self.deadline if self.args.quorum
+                            else float(times.max()))
+        self.sim_s += self.sim_round_s
+        self.max_stale = int(self.telem.stale_q.max())
+        return (f" sim_s={self.sim_s:.0f} stale<={self.max_stale}")
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(argv=None):
+    args = _parser().parse_args(argv)
+    _check(args)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    device = resolve_device(args.device)
+    _, _, ko = prng.split(prng.PRNGKey(args.seed), 3)
+    g = torch.Generator(device=device).manual_seed(args.seed)
+
+    params = init_model(cfg, g)
+    loss_fn = build_loss(cfg, q_chunk=min(1024, args.seq),
+                         kv_chunk=min(1024, args.seq))
+
+    def next_batch():
+        return make_batch(cfg, g, args.batch, args.seq, pattern=args.pattern)
+    batch0 = next_batch()
+    history = []
+
+    if args.optimizer == "ranl":
+        rcfg = RanlLLMConfig(num_workers=args.workers,
+                             keep_prob=args.keep_prob, mu=args.mu,
+                             lr=args.lr,
+                             compression=args.compression or None)
+        state = init_state(params, loss_fn, batch0, rcfg, ko)
+        hetero = (_Hetero(args, params, ko, device)
+                  if args.scenario or args.controller else None)
+        for t in range(args.steps):
+            batch = next_batch()
+            masks = None if hetero is None else hetero.masks(ko, t)
+            t0 = time.perf_counter()
+            params, state, metrics = train_step(
+                params, state, batch, ko, loss_fn=loss_fn, cfg=rcfg,
+                masks=masks)
+            sim_note = "" if hetero is None else hetero.observe(masks, t)
+            if t % args.log_every == 0 or t == args.steps - 1:
+                metrics = {k: float(v) for k, v in metrics.items()}
+                metrics["step_s"] = time.perf_counter() - t0
+                if hetero is not None:
+                    metrics["sim_round_s"] = hetero.sim_round_s
+                    metrics["sim_s"] = hetero.sim_s
+                    metrics["max_stale"] = hetero.max_stale
+                history.append(metrics)
+                if t % args.log_every == 0:
+                    print(f"step {t:4d} loss={metrics['loss']:.4f} "
+                          f"cov={metrics['coverage']:.2f} "
+                          f"uplink={metrics['uplink_frac']:.2f} "
+                          f"({metrics['step_s']:.2f}s){sim_note}")
+    else:
+        acfg = AdamWConfig(lr=1e-3)
+        state = adamw_init(params, acfg)
+        for t in range(args.steps):
+            batch = next_batch()
+            loss, grads = value_and_grad(loss_fn, params, batch)
+            params, state = adamw_step(params, state, grads, acfg)
+            del grads
+            if t % args.log_every == 0 or t == args.steps - 1:
+                rec = {"loss": float(loss)}
+                history.append(rec)
+                if t % args.log_every == 0:
+                    print(f"step {t:4d} loss={rec['loss']:.4f}")
+
+    if args.checkpoint_dir:
+        _sync(device)
+        save(params, args.checkpoint_dir, step=args.steps)
+        print(f"saved checkpoint to {args.checkpoint_dir}")
+    print(json.dumps({"final_loss": history[-1]["loss"],
+                      "first_loss": history[0]["loss"]}))
+    return history
+
+
+if __name__ == "__main__":
+    run()

@@ -309,3 +309,57 @@ def test_engine_docs_name_the_dense_step_the_engine_takes():
     src = inspect.getsource(hessian.cho_solve_rows)
     assert src.count("solve_triangular") == 2
     assert "cholesky_solve(" not in src
+
+
+# --------------------------------------------------------------------------
+# deep-net training (ROADMAP item 14b)
+# --------------------------------------------------------------------------
+
+def test_the_training_modules_are_part_of_the_package():
+    names = {m.name for m in pkgutil.walk_packages([PKG], "repro_torch.")}
+    for name in ("repro_torch.optim.ranl_llm", "repro_torch.optim.first_order",
+                 "repro_torch.checkpoint.checkpoint", "repro_torch.launch.train",
+                 "repro_torch.launch.steps", "repro_torch.models.moe",
+                 "repro_torch.models.ssm", "repro_torch.tree"):
+        assert name in names, name
+
+
+def test_train_cli_runs_with_the_reference_and_its_framework_poisoned(
+        tmp_path):
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.launch.train import run
+        for opt in ("ranl", "adamw"):
+            run(["--device", "cpu", "--smoke", "--steps", "2", "--seq", "8",
+                 "--optimizer", opt, "--checkpoint-dir", {str(tmp_path)!r}])
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1].startswith('{"final_loss"')
+
+
+def test_train_cli_defaults_to_the_card(monkeypatch):
+    from repro_torch.launch.train import run
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run(["--smoke", "--steps", "1"])
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--data-shards", "2"], "14c"), (["--model-shards", "4"], "14c"),
+    (["--pods", "2"], "14c"), (["--journal", "run.jsonl"], "15"),
+    (["--trace", "trace.json"], "15")], ids=str)
+def test_train_cli_flags_outside_the_slice_raise_not_implemented(argv,
+                                                                  item):
+    from repro_torch.launch.train import run
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item "
+                                                  f"{item}"):
+        run(["--device", "cpu", "--smoke"] + argv)

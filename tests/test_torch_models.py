@@ -40,8 +40,6 @@ from repro_torch.models.attention import blocked_attention  # noqa: E402
 
 KEY = jax.random.PRNGKey(0)
 SERVED = ["phi4-mini-3.8b", "rwkv6-3b"]
-UNSUPPORTED = ["hymba-1.5b", "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e",
-               "llava-next-mistral-7b", "musicgen-medium"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -393,17 +391,6 @@ def test_positions_without_a_cache_must_be_arange():
     with pytest.raises(ValueError, match="arange"):
         apply_attention(params["layers"][0]["attn"], x, cfg,
                         torch.arange(1, 5)[None])
-
-
-@pytest.mark.parametrize("arch", UNSUPPORTED)
-def test_unported_block_kinds_raise_not_implemented(arch):
-    cfg = _tcfg(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward({}, {"tokens": torch.zeros((1, 2), dtype=torch.int32)}, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_decode_cache(cfg, 1, 4, device="cpu")
 
 
 # --------------------------------------------------------------------------
