@@ -46,6 +46,14 @@ the card and times both, then drives the port's paths at full width:
 6. diag main path: logistic, N=32, 4096 samples per worker, d=4096, 30
    rounds through the fused ``ranl_update`` kernel, held against the same
    run on the plain path (``use_kernel=False``) on the card;
+   obs (right after it, on the same problem): the run with ``journal=``
+   under ``obs.tracing()`` and without either, two of each in turns: xs
+   and every trace bit-equal, 30 K2 launches each; the journal valid, no
+   drift record, its ``execute`` span's ``device_s`` (CUDA events) > 0;
+   ``python -m repro_torch.obs.report`` renders it; ``torch_profiler``
+   over a 3-round run logs the five device operations that took the most
+   time and the CPU operator chains that launched them; journal-on and
+   journal-off round times beside the card's name and power limit;
 7. scan engine against the reference engine on the card (N=16, d=1024),
    and the card against the CPU at a small size;
 8. serve_rwkv / serve_dense: ``repro_torch.launch.serve.generate`` on
@@ -153,7 +161,10 @@ the card and times both, then drives the port's paths at full width:
 20. train_cli: ``repro_torch.launch.train.run`` with --smoke on the card:
    RANL under pareto-stragglers with the resource controller and a 0.75
    quorum, then AdamW with --checkpoint-dir build/ckpt, restored bit-
-   equal to the trained params.
+   equal to the trained params; both with --journal and --trace: the
+   journals valid, an ``execute`` span a step timed on the card, the
+   ``checkpoint`` span, rendered by the report CLI;
+21. examples: ``examples/torch_quickstart.py`` on the card, exit 0.
 
 K1 and K2 are also held against their plain versions at the batch
 engine's (8, 32, 8192) and (8, 32, 4096), a ragged (3, 7, 513) and B = 1,
@@ -253,6 +264,7 @@ CONSISTENT_TOL = (2e-3, 3e-3)   # its prefill and decode bounds
 # most this times the plain twins' on the same weights (readings at seeds
 # 2-6 in PERF.md section 6)
 FULL_DEPTH_RATIO = 4.0
+HELD = {}        # a problem one phase builds and a later phase reuses
 
 
 def log(msg):
@@ -556,8 +568,161 @@ def phase_diag(torch, rt, report, launches):
         f"{l0:.5f} -> {l1:.5f} (x1) -> {lT:.5f} (x_T), loss(x*) "
         f"{report['diag']['loss_star']:.5f}; kernel vs plain xs max |err| "
         f"{xs_err:.3e}; launches {counts}")
-    del problem, res
+    HELD["diag"] = problem           # the obs phase runs it again
+    del res
     torch.cuda.empty_cache()
+
+
+OBS_RUNS = ("off", "on", "on", "off", "off", "on")  # journal + tracer
+OBS_WRITES = 5                   # timed writes of the finished journal
+OBS_PROFILE_ROUNDS = 3
+OBS_TRACES = ("xs", "dist_sq", "losses", "coverage", "comm_floats",
+              "round_time", "max_stale", "comm_bytes", "pod_bytes")
+
+
+def phase_obs(torch, rt, report, launches):
+    """The diag main path (N = 32, d = 4096, 30 rounds, K2 a round) with
+    ``journal=`` under ``tracing()`` and without either, in turns: xs and
+    every trace bit-equal, 30 K2 launches each; the journal valid, free
+    of drift records, its ``execute`` span timed on the card; the report
+    CLI renders it; the writer timed alone on the finished result;
+    ``torch_profiler`` over a 3-round run names the five device
+    operations that took the most time, the CPU operators that launched
+    them, and their sum against the run's wall time."""
+    from repro_torch import prng
+    from repro_torch.obs import (Journal, device_ops, read_journal,
+                                 torch_profiler, tracing, validate_journal,
+                                 write_run_journal)
+    T = 30
+    problem = HELD.pop("diag", None)
+    if problem is None:              # the diag phase failed before it
+        problem = diag_problem(torch, rt)
+    key = prng.PRNGKey(1)
+    opts = dict(curvature="diag", num_rounds=T, num_regions=64)
+    out_dir = os.path.join(HERE, "build", "obs")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "diag.jsonl")
+    init_s = init_seconds(torch, lambda: rt.run(
+        problem, key, curvature="diag", num_rounds=0, num_regions=64))
+    runs = {"off": [], "on": []}
+    for mode in OBS_RUNS:
+        if mode == "on":
+            with tracing() as tracer:
+                res, secs, counts = main_path_run(
+                    torch, rt, problem, key, launches, journal=path, **opts)
+        else:
+            res, secs, counts = main_path_run(torch, rt, problem, key,
+                                              launches, **opts)
+        if counts != {**ZERO, "ranl_update": T}:
+            raise AssertionError(f"obs {mode} run launches {counts}")
+        runs[mode].append((res, (secs - init_s) / T * 1e3))
+    base = runs["off"][0][0]
+    for mode, rs in runs.items():
+        for res, _ in rs:
+            for f in OBS_TRACES:
+                if not torch.equal(getattr(res, f), getattr(base, f)):
+                    raise AssertionError(f"obs: journal {mode}: {f} is not "
+                                         f"bit-equal to the journal-off run")
+            if (res.tau_star, res.tau_covered) != (base.tau_star,
+                                                   base.tau_covered):
+                raise AssertionError(f"obs: journal {mode}: tau differs")
+    records = read_journal(path)
+    problems = validate_journal(records)
+    if problems:
+        raise AssertionError(f"obs: invalid journal: {problems}")
+    kinds = [r["kind"] for r in records]
+    if "drift" in kinds or kinds.count("round") != T:
+        raise AssertionError(f"obs: journal kinds {sorted(set(kinds))}, "
+                             f"{kinds.count('round')} rounds")
+    spans = [r for r in records if r["kind"] == "span"]
+    if [s["name"] for s in spans] != ["execute"] or not (
+            spans[0].get("device_s", 0.0) > 0.0):
+        raise AssertionError(f"obs: spans {spans}")
+    rendered = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.report", path],
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    if rendered.returncode != 0 or "span device time" not in rendered.stdout:
+        raise AssertionError(f"obs: the report CLI failed: "
+                             f"{rendered.stderr[-2000:]}")
+    write_ms = []
+    for _ in range(OBS_WRITES):
+        t0 = time.perf_counter()
+        write_run_journal(Journal(), base, engine="scan", options=rt.
+                          RanlOptions(**opts), problem=problem)
+        write_ms.append((time.perf_counter() - t0) * 1e3)
+    with torch_profiler(os.path.join(out_dir, "profile")) as prof:
+        _, prof_s = sync_time(torch, lambda: rt.run(
+            problem, key, curvature="diag", num_rounds=OBS_PROFILE_ROUNDS,
+            num_regions=64))
+    ops = device_ops(prof)
+    device_ms = sum(op["device_ms"] for op in ops)
+    for op in ops[:5]:
+        op["launched_by"] = launched_by(prof, op["name"])[:3]
+    on_ms = [ms for _, ms in runs["on"]]
+    off_ms = [ms for _, ms in runs["off"]]
+    report["obs"] = {
+        "nvidia_smi": report.get("nvidia_smi"), "init_s": init_s,
+        "round_ms_on": on_ms, "round_ms_off": off_ms,
+        "on_over_off": statistics.mean(on_ms) / statistics.mean(off_ms),
+        "write_ms": write_ms, "execute_host_s": spans[0]["dur_s"],
+        "execute_device_s": spans[0]["device_s"],
+        "journal_records": len(records), "launches": counts,
+        "profile_rounds": OBS_PROFILE_ROUNDS,
+        "profiled_run_ms": prof_s * 1e3, "profiled_device_ms": device_ms,
+        "top_device_ops": ops[:5]}
+    log(f"obs: {report.get('nvidia_smi')}: diag round with journal + "
+        f"tracer {', '.join(f'{ms:.3f}' for ms in on_ms)} ms, without "
+        f"{', '.join(f'{ms:.3f}' for ms in off_ms)} ms (on/off "
+        f"{report['obs']['on_over_off']:.4f}); the writer alone "
+        f"{statistics.median(write_ms):.3f} ms a run; xs and traces "
+        f"bit-equal; journal valid, {len(records)} records, no drift; "
+        f"execute span {spans[0]['dur_s']:.4f} s host, "
+        f"{spans[0]['device_s']:.4f} s on the card; report CLI rendered it")
+    log(f"obs: {report.get('nvidia_smi')}: a {OBS_PROFILE_ROUNDS}-round "
+        f"diag run under torch_profiler: {prof_s * 1e3:.3f} ms, device "
+        f"operations {device_ms:.3f} ms; the top five: " + "; ".join(
+            f"{op['name'][:90]} {op['device_ms']:.3f} ms / {op['calls']}, "
+            f"launched by " + ", ".join(f"{c} ({ms:.3f} ms / {n})"
+                                        for c, ms, n in op["launched_by"])
+            for op in ops[:5]))
+    del problem, runs, base, res
+    torch.cuda.empty_cache()
+
+
+def launched_by(prof, name):
+    """The CPU operator chains (innermost first) that launched the device
+    operation ``name`` in a finished profile: [(chain, ms, calls)], the
+    most device time first."""
+    chains = {}
+    for e in prof.events():
+        for k in e.kernels:
+            if k.name != name:
+                continue
+            chain, q = [], e
+            while q is not None:
+                chain.append(q.name)
+                q = q.cpu_parent
+            row = chains.setdefault(" < ".join(chain), [0.0, 0])
+            row[0] += k.duration / 1e3
+            row[1] += 1
+    return sorted(((c, ms, n) for c, (ms, n) in chains.items()),
+                  key=lambda r: -r[1])
+
+
+def phase_examples():
+    """``examples/torch_quickstart.py`` on the card, in a subprocess."""
+    out = subprocess.run(
+        [sys.executable, os.path.join(HERE, "examples",
+                                      "torch_quickstart.py")],
+        capture_output=True, text=True, timeout=300, cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    if out.returncode != 0:
+        raise AssertionError(f"torch_quickstart exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    log("examples: torch_quickstart on the card: " + " | ".join(
+        lines[-4:]))
 
 
 def phase_engines(torch, rt, report):
@@ -2877,12 +3042,18 @@ def phase_train_cli(torch, report):
     """``repro_torch.launch.train.run`` on the card with --smoke: RANL
     under pareto-stragglers with the resource controller and a 0.75
     quorum, then AdamW with a checkpoint, restored bit-equal to the
-    trained params."""
+    trained params; both with --journal and --trace: each journal valid,
+    one round a step, an ``execute`` span a step timed on the card (and
+    the ``checkpoint`` span), rendered by the report CLI, and the Chrome
+    trace holding the same spans."""
     import io
     from repro_torch.checkpoint import restore
     from repro_torch.launch import train as cli
+    from repro_torch.obs import read_journal, validate_journal
     from repro_torch.tree import leaves
     ckpt = os.path.join(HERE, "build", "ckpt")
+    obs_dir = os.path.join(HERE, "build", "obs")
+    os.makedirs(obs_dir, exist_ok=True)
     saved = {}
     save = cli.save
 
@@ -2890,17 +3061,22 @@ def phase_train_cli(torch, report):
         saved["params"] = tree
         return save(tree, directory, **kw)
     out = {}
-    for label, argv in (
+    for label, argv, spans_want in (
             ("ranl_hetero", ["--smoke", "--steps", "4", "--scenario",
                              "pareto-stragglers", "--controller",
-                             "resource:keep=0.7", "--quorum", "0.75"]),
+                             "resource:keep=0.7", "--quorum", "0.75"],
+             ["execute"] * 4),
             ("adamw_checkpoint", ["--smoke", "--steps", "4", "--optimizer",
-                                  "adamw", "--checkpoint-dir", ckpt])):
+                                  "adamw", "--checkpoint-dir", ckpt],
+             ["execute"] * 4 + ["checkpoint"])):
+        jpath = os.path.join(obs_dir, f"train_{label}.jsonl")
+        tpath = os.path.join(obs_dir, f"train_{label}.trace.json")
         buf = io.StringIO()
         cli.save = keep
         try:
             with contextlib.redirect_stdout(buf):
-                (hist, secs) = sync_time(torch, lambda: cli.run(argv))
+                (hist, secs) = sync_time(torch, lambda: cli.run(
+                    argv + ["--journal", jpath, "--trace", tpath]))
         finally:
             cli.save = save
         lines = buf.getvalue().strip().splitlines()
@@ -2908,9 +3084,37 @@ def phase_train_cli(torch, report):
         if not all(math.isfinite(final[k]) for k in ("final_loss",
                                                    "first_loss")):
             raise AssertionError(f"train_cli {label}: {lines[-1]}")
+        records = read_journal(jpath)
+        problems = validate_journal(records)
+        spans = [r for r in records if r["kind"] == "span"]
+        rounds = [r for r in records if r["kind"] == "round"]
+        if problems or len(rounds) != 4 or [
+                s["name"] for s in spans] != spans_want or not all(
+                "device_s" in s for s in spans) or not all(
+                s["device_s"] > 0.0 for s in spans
+                if s["name"] == "execute"):
+            raise AssertionError(f"train_cli {label}: journal {problems}, "
+                                 f"{len(rounds)} rounds, spans {spans}")
+        trace = json.load(open(tpath))
+        if [e["name"] for e in trace["traceEvents"]] != spans_want:
+            raise AssertionError(f"train_cli {label}: trace {trace}")
+        rendered = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.report", jpath],
+            capture_output=True, text=True, timeout=120,
+            env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+        if rendered.returncode != 0:
+            raise AssertionError(f"train_cli {label}: the report CLI "
+                                 f"failed: {rendered.stderr[-2000:]}")
+        device_s = {s["name"]: 0.0 for s in spans}
+        for s in spans:
+            device_s[s["name"]] += s["device_s"]
         out[label] = {"seconds": secs, "final": final,
-                      "steps": len(hist), "lines": lines[-3:]}
-        log(f"train_cli {label}: {secs:.2f} s; " + " | ".join(lines[-3:]))
+                      "steps": len(hist), "lines": lines[-5:],
+                      "journal_records": len(records),
+                      "span_device_s": device_s}
+        log(f"train_cli {label}: {secs:.2f} s; journal valid ({len(records)} "
+            f"records), spans on the card {device_s}, rendered; "
+            + " | ".join(lines[-3:]))
     like = saved["params"]
     back = restore(like, ckpt)
     if not all(torch.equal(a, b) for a, b in zip(leaves(back),
@@ -3012,6 +3216,7 @@ def main(argv=None) -> int:
             ("kernels_attn_wkv", lambda: phase_attn_wkv(torch, report)),
             ("dense", lambda: phase_dense(torch, rt, report, launches)),
             ("diag", lambda: phase_diag(torch, rt, report, launches)),
+            ("obs", lambda: phase_obs(torch, rt, report, launches)),
             ("engines", lambda: phase_engines(torch, rt, report)),
             ("batch_dense", lambda: phase_batch(torch, rt, report, launches,
                                                 "dense")),
@@ -3044,7 +3249,8 @@ def main(argv=None) -> int:
                 TRAIN["seq"])),
             ("train_adamw", lambda: phase_train_adamw(torch, report,
                                                       launches)),
-            ("train_cli", lambda: phase_train_cli(torch, report))):
+            ("train_cli", lambda: phase_train_cli(torch, report)),
+            ("examples", phase_examples)):
         t0 = time.time()
         try:
             fn()

@@ -27,6 +27,12 @@ the same promises:
   panels.  Its memory contract (``memory_ceiling``, checked by
   ``analysis.memory.LargestTensors``): no tensor the dense run makes is
   larger than one panel plus ``MEMORY_SLACK``.
+
+Two more derivations serve the run journal (``obs``): ``contract_key``
+names an engine x options combination as the reference's registry does,
+and ``round_byte_budget`` gives the per-round ceilings of the metered
+``comm_bytes`` and ``pod_bytes`` traces that the drift alarm
+(``obs.metrics.check_byte_drift``) holds each round to.
 """
 
 from __future__ import annotations
@@ -203,3 +209,64 @@ def check_log(contract: CommContract, log) -> dict:
     counts.update(small_in_loop=small, capped_in_loop=capped,
                   outside_loop=outside)
     return {"ok": not bad, "violations": bad, "counts": counts}
+
+
+def contract_key(engine: str, opts) -> str:
+    """The reference registry's key for an engine x options combination
+    (the journal header's ``contract_key``)."""
+    comp = opts.compression_spec()
+    parts = [
+        engine,
+        f"comp={comp.kind if comp is not None else 'none'}",
+        f"quorum={'on' if opts.quorum_spec() is not None else 'off'}",
+        f"overlap={'on' if opts.overlap else 'off'}",
+        f"rank={opts.hessian_rank if opts.hessian_rank else 'none'}",
+    ]
+    hspec = opts.hierarchy_spec()
+    if hspec is not None:
+        tag = f"hier=p{hspec.pods}k{hspec.period}"
+        if hspec.compression is not None:
+            tag += f"-{hspec.compression}"
+        parts.append(tag)
+    return "|".join(parts)
+
+
+def _hier_window(kind: str | None, nbytes_f32: int):
+    """(min, max, dtypes) of the reference's inter-pod exchange window for
+    an ``nbytes_f32``-byte payload under the bare compression ``kind``
+    (its bf16 window is two bytes a coordinate, the dtype the reference
+    reduces in)."""
+    if kind == "int8":
+        n = nbytes_f32 // 4
+        return n, n + COMPRESSED_SLACK + PARAM_SLACK, ("int8",)
+    if kind == "bf16":
+        n = nbytes_f32 // 2
+        return n, n + PARAM_SLACK, ("bfloat16",)
+    return nbytes_f32, nbytes_f32 + PARAM_SLACK, ("float32",)
+
+
+def round_byte_budget(opts, *, dim: int, num_workers: int) -> dict:
+    """Per-round ceilings of the two metered wire traces, as the
+    reference derives them: ``comm_per_round`` bounds ``comm_bytes`` (the
+    per-worker uplinks of a full mask under the ``core.compression`` wire
+    model) and ``pod_per_round`` bounds ``pod_bytes`` (one exchange
+    payload, or a flat round's crossing on a pod topology).  A round over
+    either means the wire model, the compression spec or the engine's
+    metering drifted from this derivation."""
+    comp = opts.compression_spec()
+    if comp is None:
+        per_worker = 4.0 * dim
+    elif comp.kind == "int8":
+        per_worker = dim + COMPRESSED_SLACK     # a byte a coordinate + scale
+    elif comp.kind == "bf16":
+        per_worker = 2.0 * dim
+    else:                                       # top-k: dense f32 + metadata
+        per_worker = 4.0 * dim + 4.0 * int(comp.k)
+    hspec = opts.hierarchy_spec()
+    pod_kind = (hspec.compression if hspec is not None
+                else (comp.kind if comp is not None else None))
+    if pod_kind not in ("int8", "bf16"):
+        pod_kind = None                         # top-k crosses pods dense
+    _, pod_hi, _ = _hier_window(pod_kind, dim * 4)
+    return {"comm_per_round": per_worker * num_workers,
+            "pod_per_round": float(pod_hi)}

@@ -17,9 +17,11 @@ reference's ``repro.run``, plus the port's own rules:
   ``engine="sharded2d"`` one with ``("data", "model")`` or ``("pod",
   "data", "model")``; every rank calls ``run`` with the same arguments
   (``core.sharded``, ``core.sharded2d``);
-* engines and options whose port is still to come raise
-  ``NotImplementedError`` naming the ROADMAP item that brings them; the
-  run never falls back to something else.
+* the run never falls back to something else;
+* ``journal=`` (a path or an ``obs.Journal``) records the finished run on
+  the host after the engine returns, and an active ``obs.tracing()``
+  tracer gets one ``execute`` span, timed by CUDA events on the card:
+  the run is bit for bit the same with or without either.
 """
 
 from __future__ import annotations
@@ -31,21 +33,11 @@ from .core.ranl import RanlResult, _run_batch, _run_reference, \
 from .core.sharded import _run_batch_sharded, _run_sharded
 from .core.sharded2d import _run_sharded2d
 from .device import resolve_device
+from .obs.trace import span
 
 ENGINES = ("scan", "batch", "sharded", "sharded2d", "reference")
 _MESH_REQUIRED = ("sharded", "sharded2d")
 _MESH_FORBIDDEN = ("scan", "reference")
-
-# what is not ported yet -> the ROADMAP (Queue 1) item that ports it
-_NOT_YET = {
-    "journal": "item 15 (observability)",
-}
-
-
-def _not_yet(what: str, detail: str = ""):
-    return NotImplementedError(
-        f"{what}{detail} is not ported yet: ROADMAP Queue 1 "
-        f"{_NOT_YET[what]}")
 
 
 def _resolve(engine, options, mesh, controller, overrides):
@@ -58,8 +50,6 @@ def _resolve(engine, options, mesh, controller, overrides):
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r} "
                          f"(expected one of {ENGINES})")
-    if engine in _NOT_YET:
-        raise _not_yet(engine, " engine")
     opts = RanlOptions() if options is None else options
     if not isinstance(opts, RanlOptions):
         raise TypeError(f"options must be a RanlOptions, got {opts!r}")
@@ -119,6 +109,8 @@ def _resolve(engine, options, mesh, controller, overrides):
 
 
 def _check_device(problem, device, cost, mesh):
+    """The run's device (``device`` resolved); raises where the problem,
+    the cost model or the mesh lies elsewhere."""
     dev = resolve_device(device)
     if mesh is not None and mesh.device_type != dev.type:
         raise ValueError(
@@ -136,6 +128,7 @@ def _check_device(problem, device, cost, mesh):
             raise ValueError(
                 f"the {what}'s tensors are on {t.device}, the run asks "
                 f"for {dev}; build the {what} on that device")
+    return dev
 
 
 def run(problem, key, *, engine: str = "scan",
@@ -157,41 +150,54 @@ def run(problem, key, *, engine: str = "scan",
     ``"sharded"`` and ``"batch"``; ``data_axis`` and ``model_axis`` the
     worker and parameter dimensions of ``"sharded2d"``; ``pod_axis`` the
     pod dimension of both sharded engines.  The one-card engines take no
-    mesh and ignore the axis names, as the reference's do.  ``scenario`` labels
-    the journal and is ignored without one.  ``**overrides`` are
+    mesh and ignore the axis names, as the reference's do.  ``journal``
+    (a path or a ``repro_torch.obs.Journal``) records the finished run —
+    header, per-round traces, drift alarms, active spans, summary — on
+    the host after the engine returns (a path is written by global rank
+    0 alone; see ``obs.journal``).  ``scenario`` labels the journal
+    header (defaults to the cost model's scenario name when it has one)
+    and is ignored without a journal.  ``**overrides`` are
     ``RanlOptions`` fields merged into ``options``.
     """
-    del scenario
     opts, controller = _resolve(engine, options, mesh, controller,
                                 overrides)
-    if journal is not None:
-        raise _not_yet("journal", "=")
-    _check_device(problem, device, cost, mesh)
+    dev = _check_device(problem, device, cost, mesh)
     key = prng.as_key(key)
     if engine == "batch":
         if key.ndim != 2 or key.shape[0] < 1:
             raise ValueError(f"engine 'batch' takes stacked keys of shape "
                              f"(B, 2), got {key.shape}")
-        if mesh is not None:
-            return _run_batch_sharded(problem, key, opts, mesh=mesh,
-                                      axis_name=axis_name,
-                                      controller=controller, cost=cost)
-        return _run_batch(problem, key, opts, controller=controller,
-                          cost=cost)
-    if key.shape != (2,):
+    elif key.shape != (2,):
         raise ValueError(f"run takes one key of shape (2,), got "
                          f"{key.shape}")
-    if engine == "scan":
-        return _run_scan(problem, key, opts, controller=controller,
-                         cost=cost)
-    if engine == "sharded":
-        return _run_sharded(problem, key, opts, mesh=mesh,
-                            axis_name=axis_name, pod_axis=pod_axis,
-                            controller=controller, cost=cost)
-    if engine == "sharded2d":
-        return _run_sharded2d(problem, key, opts, mesh=mesh,
-                              data_axis=data_axis, model_axis=model_axis,
-                              pod_axis=pod_axis, controller=controller,
-                              cost=cost)
-    return _run_reference(problem, key, opts, controller=controller,
-                          cost=cost)
+    with span("execute", device=dev, engine=engine):
+        if engine == "batch" and mesh is not None:
+            result = _run_batch_sharded(problem, key, opts, mesh=mesh,
+                                        axis_name=axis_name,
+                                        controller=controller, cost=cost)
+        elif engine == "batch":
+            result = _run_batch(problem, key, opts, controller=controller,
+                                cost=cost)
+        elif engine == "scan":
+            result = _run_scan(problem, key, opts, controller=controller,
+                               cost=cost)
+        elif engine == "sharded":
+            result = _run_sharded(problem, key, opts, mesh=mesh,
+                                  axis_name=axis_name, pod_axis=pod_axis,
+                                  controller=controller, cost=cost)
+        elif engine == "sharded2d":
+            result = _run_sharded2d(problem, key, opts, mesh=mesh,
+                                    data_axis=data_axis,
+                                    model_axis=model_axis,
+                                    pod_axis=pod_axis,
+                                    controller=controller, cost=cost)
+        else:
+            result = _run_reference(problem, key, opts,
+                                    controller=controller, cost=cost)
+    if journal is not None:
+        from .obs.journal import write_run_journal
+        if scenario is None:
+            scenario = getattr(cost, "name", None)
+        write_run_journal(journal, result, engine=engine, options=opts,
+                          mesh=mesh, problem=problem, scenario=scenario)
+    return result

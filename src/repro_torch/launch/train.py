@@ -13,10 +13,15 @@ in f32, and the batches come from ``data.make_batch`` on the same
 generator (other numbers than the reference's threefry batches).  The
 round keys are the reference's (``prng``), so the masks, the simulated
 clock of ``--scenario``/``--controller``/``--quorum`` and the region
-allocation follow the reference's draws.  Not ported yet:
+allocation follow the reference's draws.  ``--journal PATH`` writes the
+reference's run-journal schema (a header, one ``round`` record a step,
+the spans, a summary; ``python -m repro_torch.obs.report PATH`` renders
+it) and ``--trace PATH`` a Chrome trace of ``execute`` spans (one a
+step, timed by CUDA events on the card) and the ``checkpoint`` span.
+The port runs eagerly, so it has no ``lower``/``compile`` spans and no
+compiled HLO for ``--dump-hlo`` to write.  Not ported yet:
 ``--data-shards``/``--model-shards``/``--pods`` above 1 (ROADMAP Queue 1
-item 14c), ``--journal`` and ``--trace`` (item 15); the port has no
-compiled HLO for ``--dump-hlo`` to write.
+item 14c).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from contextlib import nullcontext
 
 import torch
 
@@ -33,13 +39,13 @@ from ..configs import get_config, smoke_variant
 from ..data import make_batch
 from ..device import resolve_device
 from ..models import init_model, lm_loss
+from ..obs import Journal, Tracer, make_header
 from ..optim import (AdamWConfig, RanlLLMConfig, adamw_init, adamw_step,
                      init_state, train_step)
 from ..optim.first_order import value_and_grad
 
 _SHARDED_ITEM = ("ROADMAP Queue 1 item 14c (sharded deep-net training on "
                  "torch.distributed)")
-_OBS_ITEM = "ROADMAP Queue 1 item 15 (obs/: journal, trace)"
 
 
 def build_loss(cfg, q_chunk=1024, kv_chunk=1024):
@@ -106,9 +112,16 @@ def _parser():
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--journal", default="", metavar="PATH",
-                    help="structured run journal (not ported yet)")
+                    help="write a structured run journal (JSONL, the "
+                         "reference's schema): header + one record per "
+                         "step + summary — render it with "
+                         "'python -m repro_torch.obs.report PATH'")
     ap.add_argument("--trace", default="", metavar="PATH",
-                    help="span trace of the run (not ported yet)")
+                    help="span-trace the run (execute/checkpoint; device "
+                         "seconds from CUDA events on the card) and write "
+                         "Chrome-trace JSON to PATH (open in Perfetto); "
+                         "spans also land in the --journal when both are "
+                         "set")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' runs on the host")
     return ap
@@ -140,11 +153,6 @@ def _check(args):
             raise NotImplementedError(
                 f"{flag} {value}: sharded training is not ported yet; "
                 f"see {_SHARDED_ITEM}")
-    for flag, value in (("--journal", args.journal),
-                        ("--trace", args.trace)):
-        if value:
-            raise NotImplementedError(
-                f"{flag} is not ported yet; see {_OBS_ITEM}")
     if args.dump_hlo:
         raise SystemExit("--dump-hlo: the PyTorch port runs eagerly and "
                          "compiles no HLO to write or analyze")
@@ -235,6 +243,19 @@ def run(argv=None):
         return make_batch(cfg, g, args.batch, args.seq, pattern=args.pattern)
     batch0 = next_batch()
     history = []
+    journal = Journal(args.journal) if args.journal else None
+    tracer = Tracer() if args.trace else None
+
+    def tspan(name, **meta):
+        return (tracer.span(name, device=device, **meta)
+                if tracer is not None else nullcontext())
+
+    def header(engine, options, scenario=None, **extra):
+        return make_header(engine=engine, options=options,
+                           scenario=scenario,
+                           extra={"arch": args.arch, "steps": args.steps,
+                                  "batch": args.batch, "seq": args.seq,
+                                  **extra})
 
     if args.optimizer == "ranl":
         rcfg = RanlLLMConfig(num_workers=args.workers,
@@ -244,15 +265,22 @@ def run(argv=None):
         state = init_state(params, loss_fn, batch0, rcfg, ko)
         hetero = (_Hetero(args, params, ko, device)
                   if args.scenario or args.controller else None)
+        if journal is not None:
+            journal.write(header("train:ranl", rcfg,
+                                 scenario=args.scenario or None,
+                                 controller=args.controller or None,
+                                 quorum=args.quorum or None))
         for t in range(args.steps):
             batch = next_batch()
             masks = None if hetero is None else hetero.masks(ko, t)
             t0 = time.perf_counter()
-            params, state, metrics = train_step(
-                params, state, batch, ko, loss_fn=loss_fn, cfg=rcfg,
-                masks=masks)
+            with tspan("execute", step=t):
+                params, state, metrics = train_step(
+                    params, state, batch, ko, loss_fn=loss_fn, cfg=rcfg,
+                    masks=masks)
             sim_note = "" if hetero is None else hetero.observe(masks, t)
-            if t % args.log_every == 0 or t == args.steps - 1:
+            if (journal is not None or t % args.log_every == 0
+                    or t == args.steps - 1):
                 metrics = {k: float(v) for k, v in metrics.items()}
                 metrics["step_s"] = time.perf_counter() - t0
                 if hetero is not None:
@@ -260,6 +288,8 @@ def run(argv=None):
                     metrics["sim_s"] = hetero.sim_s
                     metrics["max_stale"] = hetero.max_stale
                 history.append(metrics)
+                if journal is not None:
+                    journal.write({"kind": "round", "t": t + 1, **metrics})
                 if t % args.log_every == 0:
                     print(f"step {t:4d} loss={metrics['loss']:.4f} "
                           f"cov={metrics['coverage']:.2f} "
@@ -268,21 +298,40 @@ def run(argv=None):
     else:
         acfg = AdamWConfig(lr=1e-3)
         state = adamw_init(params, acfg)
+        if journal is not None:
+            journal.write(header("train:adamw", acfg))
         for t in range(args.steps):
             batch = next_batch()
-            loss, grads = value_and_grad(loss_fn, params, batch)
-            params, state = adamw_step(params, state, grads, acfg)
+            with tspan("execute", step=t):
+                loss, grads = value_and_grad(loss_fn, params, batch)
+                params, state = adamw_step(params, state, grads, acfg)
             del grads
-            if t % args.log_every == 0 or t == args.steps - 1:
+            if (journal is not None or t % args.log_every == 0
+                    or t == args.steps - 1):
                 rec = {"loss": float(loss)}
                 history.append(rec)
+                if journal is not None:
+                    journal.write({"kind": "round", "t": t + 1, **rec})
                 if t % args.log_every == 0:
                     print(f"step {t:4d} loss={rec['loss']:.4f}")
 
     if args.checkpoint_dir:
         _sync(device)
-        save(params, args.checkpoint_dir, step=args.steps)
+        with tspan("checkpoint"):
+            save(params, args.checkpoint_dir, step=args.steps)
         print(f"saved checkpoint to {args.checkpoint_dir}")
+    if journal is not None:
+        if tracer is not None:
+            for srec in tracer.span_records():
+                journal.write(srec)
+        journal.write({"kind": "summary", "rounds": args.steps,
+                       "first_loss": history[0]["loss"],
+                       "final_loss": history[-1]["loss"]})
+        journal.close()
+        print(f"wrote journal to {args.journal}")
+    if tracer is not None:
+        tracer.write_chrome(args.trace)
+        print(f"wrote chrome trace to {args.trace}")
     print(json.dumps({"final_loss": history[-1]["loss"],
                       "first_loss": history[0]["loss"]}))
     return history

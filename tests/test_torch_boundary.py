@@ -32,6 +32,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     out = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "kernel_ab.py")]
+    out += [os.path.join(ROOT, "examples", f) for f in sorted(os.listdir(
+        os.path.join(ROOT, "examples"))) if f.startswith("torch_")]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -123,16 +125,6 @@ def test_run_refuses_a_cost_model_on_another_device():
     with pytest.raises(ValueError, match="cost model"):
         repro_torch.run(_small(), prng.PRNGKey(1), device="cpu",
                         num_rounds=1, num_regions=2, cost=cost)
-
-
-@pytest.mark.parametrize("kw", [
-    dict(journal="run.jsonl"),
-    dict(journal="run.jsonl", scenario="geo-distributed")],
-    ids=str)
-def test_options_outside_the_slice_raise_not_implemented(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        repro_torch.run(_small(), prng.PRNGKey(1), device="cpu",
-                        num_rounds=1, num_regions=2, **kw)
 
 
 @pytest.mark.parametrize("kw", [
@@ -355,8 +347,7 @@ def test_train_cli_defaults_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("argv,item", [
     (["--data-shards", "2"], "14c"), (["--model-shards", "4"], "14c"),
-    (["--pods", "2"], "14c"), (["--journal", "run.jsonl"], "15"),
-    (["--trace", "trace.json"], "15")], ids=str)
+    (["--pods", "2"], "14c")], ids=str)
 def test_train_cli_flags_outside_the_slice_raise_not_implemented(argv,
                                                                   item):
     from repro_torch.launch.train import run
