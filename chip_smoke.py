@@ -164,7 +164,24 @@ the card and times both, then drives the port's paths at full width:
    equal to the trained params; both with --journal and --trace: the
    journals valid, an ``execute`` span a step timed on the card, the
    ``checkpoint`` span, rendered by the report CLI;
-21. examples: ``examples/torch_quickstart.py`` on the card, exit 0.
+21. examples: ``examples/torch_quickstart.py`` on the card, exit 0;
+22. train_sharded (run after train_cli, before examples): RANL with
+   ``mesh=`` (``optim.ranl_llm``).  (a) NCCL at world size 1 in this
+   process on ("data", "model") = (1, 1): train_dense's setup,
+   ``init_state`` then 3 ``train_step``s, K3 launched 4 x 2 x 4 = 32
+   times; each step (and the init) held to the unsharded step from the
+   same inputs on the card: coverage and uplink equal, loss, params and
+   precond within ``TRAIN_TOL``; the collective log within
+   ``analysis.train_contract``; s a step beside the unsharded step's
+   and train_dense's, peak memory beside the unsharded step's.  (b) two
+   gloo ranks on the card (spawn) on ("data",) = 2 and ("data",
+   "model") = (1, 2): phi4-mini at full width cut to 1 layer, N = 4,
+   batch 4 x 256, 2 steps, each held to the unsharded run of the same
+   init_state and steps; each rank's persistent RANL state bytes and
+   ``max_memory_allocated`` beside the unsharded run's (at most
+   ``HALF_STATE`` of it at (1, 2)); and the train CLI with ``--smoke
+   --data-shards 2`` on the two ranks, its final line within
+   ``TRAIN_TOL`` of the one-rank CLI run's.
 
 K1 and K2 are also held against their plain versions at the batch
 engine's (8, 32, 8192) and (8, 32, 4096), a ragged (3, 7, 513) and B = 1,
@@ -2736,15 +2753,17 @@ TRAIN_TOL = {"flash_attention": 1e-3, "rwkv_wkv": 1e-2}
 ADAM_SIGN_SHARE = 1e-3
 
 
-def train_setup(torch, arch, seq):
+def train_setup(torch, arch, seq, layers=None, batch=None, steps=None):
     from repro_torch.configs import get_config
     from repro_torch.data import make_batch
     from repro_torch.models import init_model, lm_loss
-    cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN["layers"])
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=layers or TRAIN["layers"])
     g = torch.Generator(device="cuda").manual_seed(5)
     params = init_model(cfg, g, torch.float32)
-    batches = [make_batch(cfg, g, TRAIN["batch"], seq, pattern="bigram")
-               for _ in range(1 + TRAIN["steps"])]
+    batches = [make_batch(cfg, g, batch or TRAIN["batch"], seq,
+                          pattern="bigram")
+               for _ in range(1 + (steps or TRAIN["steps"]))]
 
     def loss_fn(p, b):
         return lm_loss(p, b, cfg, q_chunk=min(1024, seq),
@@ -3127,6 +3146,429 @@ def phase_train_cli(torch, report):
     report["train_cli"] = out
 
 
+# --------------------------------------------------------------------------
+# sharded RANL training on torch.distributed (phase train_sharded)
+# --------------------------------------------------------------------------
+
+# leg (a), NCCL at world size 1: train_dense's setup, init_state then
+# this many train_steps
+TRAIN_SHARDED_STEPS = 3
+# leg (b), two gloo ranks on the card: phi4-mini cut to 1 layer, N = 4,
+# batch 4 x 256, 2 steps, on each mesh (label, shape, dimension names)
+TRAIN_SHARDED_CUT = dict(layers=1, batch=4, seq=256, steps=2)
+TRAIN_SHARDED_MESHES = (("data2", (2,), ("data",)),
+                        ("1x2", (1, 2), ("data", "model")))
+# each rank's persistent RANL state at ("data", "model") = (1, 2), at most
+# this share of the unsharded state's bytes
+HALF_STATE = 0.55
+
+
+def host_rss_gb():
+    """This process's resident host memory, GB (0 where /proc lacks it)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024 / 1e9
+    except OSError:
+        pass
+    return 0.0
+
+
+def state_bytes(params, state):
+    """Bytes of the persistent RANL state: params, precond and memory,
+    every leaf (an int8 leaf's codes and scales)."""
+    from repro_torch.tree import leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in leaves(tree)
+                   for t in (t.values() if isinstance(t, dict) else [t]))
+    return nbytes(params) + nbytes(state["precond"]) + nbytes(
+        state["memory"])
+
+
+def train_mesh(shape, dims):
+    """("data",) from init_device_mesh, as the train CLI builds it for
+    --data-shards alone; any other shape from make_engine_mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.mesh import make_engine_mesh
+    if dims == ("data",):
+        return init_device_mesh("cuda", shape, mesh_dim_names=dims)
+    pods = shape[0] if len(shape) == 3 else 1
+    return make_engine_mesh(shape[-2], shape[-1], pods=pods,
+                            device_type="cuda")
+
+
+def held_to_unsharded(torch, label, got, got_metrics, want, want_metrics,
+                      tol):
+    """A sharded step's output ``got`` ({"params", "precond"}, full
+    leaves, on the host) and metrics against the unsharded step's
+    ``want`` and ``want_metrics``: coverage and uplink equal, loss within
+    ``tol`` (relative), params and precond within ``tol`` x each leaf's
+    max.  Returns the worst gaps."""
+    for k in ("coverage", "uplink_frac"):
+        if float(want_metrics[k]) != got_metrics[k]:
+            raise AssertionError(f"{label}: {k} {got_metrics[k]} vs the "
+                                 f"unsharded step's {float(want_metrics[k])}")
+    loss = float(want_metrics["loss"])
+    if not abs(got_metrics["loss"] - loss) <= tol * abs(loss):
+        raise AssertionError(f"{label}: loss {got_metrics['loss']} vs the "
+                             f"unsharded step's {loss}")
+    return {name: leaves_close(torch, got[name], want[name],
+                               f"{label} {name}", tol)
+            for name in ("params", "precond")} | {
+        "loss": abs(got_metrics["loss"] - loss) / abs(loss)}
+
+
+def train_sharded_world_of_one(torch, report, launches):
+    """Leg (a): NCCL at world size 1 in this process, ("data", "model") =
+    (1, 1): train_dense's setup (phi4-mini, 2 layers, f32, N = 4, batch
+    8 x 512), init_state then TRAIN_SHARDED_STEPS train_steps on the
+    mesh.  Each held to the unsharded step (and init_state) from the same
+    inputs on the card; K3 launches N x L x (1 + steps) times in the
+    sharded run; its log passes the train-step contract."""
+    import torch.distributed as dist
+    from repro_torch import prng
+    from repro_torch.analysis import check_log, train_contract
+    from repro_torch.core.collectives import Collectives
+    from repro_torch.launch.mesh import make_engine_mesh
+    from repro_torch.launch.shard import ranl_state_pspecs
+    from repro_torch.optim import (RanlLLMConfig, init_state, shard_params,
+                                   train_step)
+    from repro_torch.optim.ranl_llm import mesh_sizes
+    tol = TRAIN_TOL["flash_attention"]
+    cfg, params, batches, loss_fn = train_setup(
+        torch, "phi4-mini-3.8b", TRAIN["seq"], steps=TRAIN_SHARDED_STEPS)
+    rcfg = RanlLLMConfig(num_workers=TRAIN["workers"], keep_prob=0.7,
+                         mu=1e-4, lr=1.0)
+    key = prng.PRNGKey(0)
+    counts = dict(ZERO)
+
+    def main_path(fn):
+        torch.cuda.reset_peak_memory_stats()
+        out, secs, c = counted(torch, launches, fn)
+        for k, v in c.items():
+            counts[k] += v
+        return out, secs, torch.cuda.max_memory_allocated()
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        sharded_store("nccl_train"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_engine_mesh(1, 1, device_type="cuda")
+        pspecs = {"state": ranl_state_pspecs(params, 1)}
+        coll = Collectives(mesh)
+        on = dict(mesh=mesh, pspecs=pspecs, coll=coll)
+        p = shard_params(params, mesh, pspecs)
+        del params
+        state, init_s, peak = main_path(lambda: init_state(
+            p, loss_fn, batches[0], rcfg, key, **on))
+        plain = init_state(p, loss_fn, batches[0], rcfg, key)
+        init_gap = leaves_close(torch, state["precond"], plain["precond"],
+                                "train_sharded (a) init precond", tol)
+        del plain
+        torch.cuda.empty_cache()
+        peaks, step_s, plain_s, plain_peaks, gaps = [peak], [], [], [], []
+        metrics = []
+        for t, b in enumerate(batches[1:]):
+            (p1, s1, m), secs, peak = main_path(lambda: train_step(
+                p, state, b, key, loss_fn=loss_fn, cfg=rcfg, **on))
+            metrics.append({k: float(v) for k, v in m.items()})
+            step_s.append(secs)
+            peaks.append(peak)
+            host = to_cpu({"params": p1, "state": s1})
+            del p1, s1
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            (q, r, mt), us = sync_time(torch, lambda: train_step(
+                p, state, b, key, loss_fn=loss_fn, cfg=rcfg))
+            plain_peaks.append(torch.cuda.max_memory_allocated())
+            plain_s.append(us)
+            gaps.append(held_to_unsharded(
+                torch, f"train_sharded (a) step {t}",
+                {"params": host["params"],
+                 "precond": host["state"]["precond"]}, metrics[-1],
+                {"params": q, "precond": r["precond"]}, mt, tol))
+            del q, r, p, state
+            torch.cuda.empty_cache()
+            p, state = to_card(host["params"]), to_card(host["state"])
+            del host
+        rep = check_log(train_contract(TRAIN_SHARDED_STEPS,
+                                       **mesh_sizes(p, mesh, pspecs)),
+                        coll.log)
+        if not rep["ok"]:
+            raise AssertionError(f"train_sharded (a): the log breaks the "
+                                 f"train contract: {rep['violations'][:3]}")
+        want = TRAIN["workers"] * TRAIN["layers"] * (1 + TRAIN_SHARDED_STEPS)
+        if counts != {**ZERO, "flash_attention": want}:
+            raise AssertionError(f"train_sharded (a): launches {counts}, "
+                                 f"expected flash_attention: {want}")
+        del p, state
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    warm = statistics.median(step_s[1:])
+    row = {"mesh": {"data": 1, "model": 1}, "init_state_s": init_s,
+           "step_s": step_s, "warm_step_s": warm,
+           "unsharded_step_s": plain_s,
+           "train_dense_warm_step_s": report.get("train_dense", {}).get(
+               "warm_step_s"),
+           "tokens_per_s": TRAIN["batch"] * TRAIN["seq"] / warm,
+           "peak_gb": max(peaks) / 1e9,
+           "unsharded_peak_gb": max(plain_peaks) / 1e9,
+           "init_precond_max_rel_err": init_gap,
+           "params_max_rel_err": max(g["params"] for g in gaps),
+           "precond_max_rel_err": max(g["precond"] for g in gaps),
+           "loss_max_rel_err": max(g["loss"] for g in gaps),
+           "losses": [m["loss"] for m in metrics], "launches": counts,
+           "collectives": {k: sum(v) if isinstance(v, list) else v
+                           for k, v in rep["counts"].items()},
+           "wire": sorted({(c.dim, c.op, c.dtype, c.nbytes)
+                           for c in coll.log})}
+    log(f"train_sharded (a) NCCL x1 (1, 1), phi4-mini 2 layers, N = 4, "
+        f"batch 8 x {TRAIN['seq']}: init_state {init_s:.3f} s; steps "
+        f"{[round(x, 4) for x in step_s]} s (warm {warm:.4f} s) against "
+        f"{[round(x, 4) for x in plain_s]} s unsharded from the same "
+        f"inputs and train_dense's warm {row['train_dense_warm_step_s']} "
+        f"({report.get('nvidia_smi')}); peak {row['peak_gb']:.2f} GB "
+        f"(unsharded {row['unsharded_peak_gb']:.2f}); launches {counts}; "
+        f"params / precond / loss within {row['params_max_rel_err']:.3e} / "
+        f"{row['precond_max_rel_err']:.3e} / {row['loss_max_rel_err']:.3e} "
+        f"of the unsharded step's; collectives {row['collectives']}, wire "
+        f"{row['wire']}")
+    return row
+
+
+def _train_sharded_rank(rank, store, out_dir):
+    """Leg (b)'s rank ``rank`` of 2, on the one card over gloo: on each
+    mesh of TRAIN_SHARDED_MESHES, init_state and the steps of
+    TRAIN_SHARDED_CUT, params and precond gathered to full leaves after
+    each (on the host, rank 0); then, its shards freed, rank 0 runs the
+    same init_state and steps unsharded and holds each sharded step to
+    them.  Then the train CLI with --smoke --data-shards 2.  Results go
+    to ``out_dir/train_rank<r>.pt``."""
+    import io
+    import torch
+    import torch.distributed as dist
+    from repro_torch import prng
+    from repro_torch.core.collectives import Collectives
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train as cli
+    from repro_torch.launch.shard import ranl_state_pspecs
+    from repro_torch.optim import (RanlLLMConfig, gather_tree, init_state,
+                                   shard_params, train_step)
+    from repro_torch.optim.ranl_llm import mesh_sizes
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    cut = TRAIN_SHARDED_CUT
+    tol = TRAIN_TOL["flash_attention"]
+    try:
+        cfg, params, batches, loss_fn = train_setup(
+            torch, "phi4-mini-3.8b", cut["seq"], layers=cut["layers"],
+            batch=cut["batch"], steps=cut["steps"])
+        rcfg = RanlLLMConfig(num_workers=TRAIN["workers"], keep_prob=0.7,
+                             mu=1e-4, lr=1.0)
+        key = prng.PRNGKey(0)
+        out = {}
+        for label, shape, dims in TRAIN_SHARDED_MESHES:
+            mesh = train_mesh(shape, dims)
+            M = shape[-1] if "model" in dims else 1
+            pspecs = {"state": ranl_state_pspecs(params, M)}
+            coll, look = Collectives(mesh), Collectives(mesh)
+            on = dict(mesh=mesh, pspecs=pspecs, coll=coll)
+
+            def full(p, s):
+                f = {"params": gather_tree(p, mesh, pspecs, look),
+                     "precond": gather_tree(s["precond"], mesh, pspecs,
+                                            look)}
+                return to_cpu(f) if rank == 0 else None
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            dist.barrier()
+            p = shard_params(params, mesh, pspecs)
+            state, init_s = sync_time(torch, lambda: init_state(
+                p, loss_fn, batches[0], rcfg, key, **on))
+            row = {"init_s": init_s, "persistent_bytes": state_bytes(
+                p, state), "sizes": mesh_sizes(p, mesh, pspecs),
+                "step_s": [], "metrics": []}
+            launched, peak = dict(LAUNCHES), torch.cuda.max_memory_allocated()
+            snaps = [full(p, state)]
+            for b in batches[1:]:
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                dist.barrier()      # rank 0's host copy is not the step's
+                (p, state, m), secs = sync_time(torch, lambda: train_step(
+                    p, state, b, key, loss_fn=loss_fn, cfg=rcfg, **on))
+                peak = max(peak, torch.cuda.max_memory_allocated())
+                for k, v in LAUNCHES.items():
+                    launched[k] = launched.get(k, 0) + v
+                row["step_s"].append(secs)
+                row["metrics"].append({k: float(v) for k, v in m.items()})
+                snaps.append(full(p, state))
+                log(f"train_sharded (b) rank {rank} {label} step "
+                    f"{len(row['step_s']) - 1}: {secs:.3f} s; host "
+                    f"{host_rss_gb():.1f} GB, card "
+                    f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
+            row.update(launches=launched, max_memory_allocated=peak,
+                       log=[tuple(c.__dict__.values()) for c in coll.log])
+            del p, state
+            torch.cuda.empty_cache()
+            dist.barrier()                  # the card is rank 0's now
+            if rank == 0:
+                torch.cuda.reset_peak_memory_stats()
+                s = init_state(params, loss_fn, batches[0], rcfg, key)
+                gaps = [{"precond": leaves_close(
+                    torch, snaps[0]["precond"], s["precond"],
+                    f"train_sharded (b) {label} init precond", tol)}]
+                q, row["unsharded_step_s"] = params, []
+                for t, b in enumerate(batches[1:]):
+                    (q, s, mt), us = sync_time(torch, lambda: train_step(
+                        q, s, b, key, loss_fn=loss_fn, cfg=rcfg))
+                    row["unsharded_step_s"].append(us)
+                    gaps.append(held_to_unsharded(
+                        torch, f"train_sharded (b) {label} step {t}",
+                        snaps[t + 1], row["metrics"][t],
+                        {"params": q, "precond": s["precond"]}, mt, tol))
+                row["unsharded_max_memory_allocated"] = \
+                    torch.cuda.max_memory_allocated()
+                row["unsharded_bytes"] = state_bytes(q, s)
+                row["gaps"] = {k: max(g.get(k, 0.0) for g in gaps)
+                               for k in ("params", "precond", "loss")}
+                del q, s
+            del snaps
+            torch.cuda.empty_cache()
+            out[label] = row
+            dist.barrier()
+        del params, batches
+        torch.cuda.empty_cache()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.run(["--smoke", "--data-shards", "2", "--steps", "2"])
+        out["cli"] = buf.getvalue()
+        torch.save(out, os.path.join(out_dir, f"train_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def train_sharded_two_ranks(torch, report, launches):
+    """Leg (b): two ranks on the one card over gloo (spawn, joined within
+    600 s).  Both ranks' metrics equal; each step held to the unsharded
+    run's; each log within the train-step contract;
+    each rank's persistent state and peak beside the unsharded run's, at
+    most HALF_STATE of it at (1, 2); the CLI's final line within
+    TRAIN_TOL of the one-rank CLI run's."""
+    import io
+    import torch.multiprocessing as mp
+    from repro_torch.analysis import check_log, train_contract
+    from repro_torch.core.collectives import Collective
+    from repro_torch.launch import train as cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.run(["--smoke", "--steps", "2"])
+    one = json.loads(buf.getvalue().strip().splitlines()[-1])
+    torch.cuda.empty_cache()
+    out_dir = os.path.dirname(sharded_store("gloo_train"))
+    for r in (0, 1):
+        if os.path.exists(os.path.join(out_dir, f"train_rank{r}.pt")):
+            os.remove(os.path.join(out_dir, f"train_rank{r}.pt"))
+    ctx = mp.start_processes(_train_sharded_rank, args=(
+        os.path.join(out_dir, "gloo_train"), out_dir), nprocs=2,
+        join=False, start_method="spawn")
+    deadline = time.time() + 600
+    while not ctx.join(timeout=5):
+        if time.time() > deadline:
+            for p in ctx.processes:
+                p.terminate()
+            raise AssertionError("the two train_sharded ranks did not "
+                                 "finish in 600 s")
+    ranks = [torch.load(os.path.join(out_dir, f"train_rank{r}.pt"),
+                        weights_only=False) for r in (0, 1)]
+    out = {}
+    steps = TRAIN_SHARDED_CUT["steps"]
+    for label, shape, dims in TRAIN_SHARDED_MESHES:
+        a, b = ranks[0][label], ranks[1][label]
+        if a["metrics"] != b["metrics"]:
+            raise AssertionError(f"train_sharded (b) {label}: ranks differ "
+                                 f"in {a['metrics']} / {b['metrics']}")
+        cc = []
+        for i, r in enumerate(ranks):
+            rep = check_log(train_contract(steps, **r[label]["sizes"]),
+                            [Collective(*e) for e in r[label]["log"]])
+            if not rep["ok"]:
+                raise AssertionError(f"train_sharded (b) {label} rank {i}: "
+                                     f"{rep['violations'][:3]}")
+            cc.append({k: sum(v) if isinstance(v, list) else v
+                       for k, v in rep["counts"].items()})
+            got = r[label]["launches"]
+            n_local = TRAIN["workers"] // (shape[0] if dims[0] == "data"
+                                           else 1)
+            want = n_local * TRAIN_SHARDED_CUT["layers"] * (1 + steps)
+            if {**ZERO, **got} != {**ZERO, "flash_attention": want}:
+                raise AssertionError(f"train_sharded (b) {label} rank {i}: "
+                                     f"launches {got}, expected "
+                                     f"flash_attention: {want}")
+            for name, v in got.items():
+                launches[name] += v
+        share = [r[label]["persistent_bytes"] / a["unsharded_bytes"]
+                 for r in ranks]
+        if "model" in dims and not max(share) <= HALF_STATE:
+            raise AssertionError(f"train_sharded (b) {label}: persistent "
+                                 f"state {share} of the unsharded state's")
+        out[label] = {
+            "mesh": dict(zip(dims, shape)),
+            "step_s": [r[label]["step_s"] for r in ranks],
+            "unsharded_step_s": a["unsharded_step_s"],
+            "init_s": [r[label]["init_s"] for r in ranks],
+            "persistent_bytes": [r[label]["persistent_bytes"]
+                                 for r in ranks],
+            "unsharded_bytes": a["unsharded_bytes"], "state_share": share,
+            "max_memory_allocated": [r[label]["max_memory_allocated"]
+                                     for r in ranks],
+            "unsharded_max_memory_allocated":
+                a["unsharded_max_memory_allocated"],
+            "gaps": a["gaps"], "launches": [r[label]["launches"]
+                                            for r in ranks],
+            "collectives": cc[0]}
+        o = out[label]
+        log(f"train_sharded (b) gloo x2 on one card {o['mesh']}, phi4-mini "
+            f"1 layer, N = 4, batch 4 x 256: steps {o['step_s']} s (ranks "
+            f"0 / 1) against {[round(x, 4) for x in o['unsharded_step_s']]}"
+            f" s unsharded ({report.get('nvidia_smi')}); persistent state "
+            f"{o['persistent_bytes']} B a rank = {[round(x, 4) for x in share]}"
+            f" of the unsharded {o['unsharded_bytes']} B; max_memory_"
+            f"allocated {o['max_memory_allocated']} against "
+            f"{o['unsharded_max_memory_allocated']} unsharded; gaps "
+            f"{o['gaps']}; collectives {cc[0]}")
+    lines = ranks[0]["cli"].strip().splitlines()
+    got = json.loads(lines[-1])
+    if ranks[1]["cli"].strip():
+        raise AssertionError(f"train_sharded (b) CLI: rank 1 printed "
+                             f"{ranks[1]['cli'][-500:]}")
+    for k in ("final_loss", "first_loss"):
+        if not abs(got[k] - one[k]) <= TRAIN_TOL["flash_attention"] * abs(
+                one[k]):
+            raise AssertionError(f"train_sharded (b) CLI: {k} {got[k]} on "
+                                 f"two ranks vs {one[k]} on one")
+    out["cli"] = {"two_ranks": got, "one_rank": one, "lines": lines[-4:]}
+    log(f"train_sharded (b) CLI --smoke --data-shards 2 on two gloo ranks: "
+        f"{got} against {one} on one rank")
+    return out
+
+
+def phase_train_sharded(torch, report, launches):
+    """Sharded RANL training: leg (a), NCCL at world size 1 in this
+    process; leg (b), two ranks on the card over gloo."""
+    with loopback():
+        a = train_sharded_world_of_one(torch, report, launches)
+        b = train_sharded_two_ranks(torch, report, launches)
+    report["train_sharded"] = {"nccl_x1": a,
+                               **{f"gloo_x2_{k}": v for k, v in b.items()}}
+
+
 def launches_by_path(report):
     """{path: its run's launch counts} for every counted main-path run the
     report holds (options runs as ``options.<label>``)."""
@@ -3250,6 +3692,8 @@ def main(argv=None) -> int:
             ("train_adamw", lambda: phase_train_adamw(torch, report,
                                                       launches)),
             ("train_cli", lambda: phase_train_cli(torch, report)),
+            ("train_sharded", lambda: phase_train_sharded(torch, report,
+                                                          launches)),
             ("examples", phase_examples)):
         t0 = time.time()
         try:

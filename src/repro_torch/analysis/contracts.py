@@ -28,6 +28,17 @@ the same promises:
   ``analysis.memory.LargestTensors``): no tensor the dense run makes is
   larger than one panel plus ``MEMORY_SLACK``.
 
+The deep-net train step with a mesh (``optim.ranl_llm.train_step``,
+``train_contract``) runs, each step, exactly ONE all-reduce over the
+worker plane ("data", or "pod+data"), whose bytes are one f32 pass over
+this rank's params shard (two under ``precond_beta``) plus at most
+``TRAIN_SMALL`` bytes (the N losses and per-leaf sums) — the reference's
+``grad_bytes`` window; with M > 1 model shards, exactly one all-gather
+of the params' cut leaves over "model" and one small all-reduce over
+"model" (the Newton step's per-leaf ‖Δ‖² and the grad norm); nothing
+else.  Its init runs one more plane pass (the Fisher diagonal) and,
+with M > 1, one all-gather.
+
 Two more derivations serve the run journal (``obs``): ``contract_key``
 names an engine x options combination as the reference's registry does,
 and ``round_byte_budget`` gives the per-round ceilings of the metered
@@ -37,24 +48,34 @@ and ``round_byte_budget`` gives the per-round ceilings of the metered
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 PARAM_SLACK = 256        # bytes: the ceiling of a "small" collective
 COMPRESSED_SLACK = 64    # bytes of side-band a compressed payload may add
 MEMORY_SLACK = 64 * 1024  # bytes a tensor may exceed the panel by
+TRAIN_SMALL = 64 * 1024   # bytes of small sums a train step's pass carries
 
 
 @dataclass(frozen=True)
 class Budget:
-    """Exactly one all-reduce (op sum) over ``dim`` in each of ``units``
-    units of ``period`` rounds, of ``min_bytes`` … ``max_bytes`` bytes
-    and a dtype among ``dtypes``."""
+    """Exactly one collective ``op`` (an all-reduce ``"sum"`` unless
+    said) over ``dim`` in each of ``units`` units of ``period`` rounds, of
+    ``min_bytes`` … ``max_bytes`` bytes and a dtype among ``dtypes``.  As
+    an ``init_budgets`` entry: exactly ``units`` of them outside the
+    loop."""
     dim: str
     period: int
     units: int
     min_bytes: int
     max_bytes: int
     dtypes: tuple[str, ...]
+    op: str = "sum"
+
+    def matches(self, rec) -> bool:
+        return (rec.dim == self.dim and rec.op == self.op
+                and rec.dtype in self.dtypes
+                and self.min_bytes <= rec.nbytes <= self.max_bytes)
 
 
 @dataclass(frozen=True)
@@ -64,13 +85,15 @@ class CommContract:
     dimension, any number of them; ``small_max_bytes``: the ceiling of
     every other in-loop collective (0: none may run in the loop);
     ``outside``: whether collectives may run outside the loop, each of at
-    most ``outside_max_bytes`` (None: any size)."""
+    most ``outside_max_bytes`` (None: any size); ``init_budgets``, when
+    given, the only collectives allowed outside the loop."""
     rounds: int
     budgets: tuple[Budget, ...] = ()
     small_max_bytes: int = 0
     outside: bool = False
     caps: tuple[tuple[str, int], ...] = ()
     outside_max_bytes: int | None = None
+    init_budgets: tuple[Budget, ...] = ()
 
 
 def _payload_window(comp, nbytes_f32: int):
@@ -147,6 +170,34 @@ def _contract_2d(opts, T: int, *, dim: int, n_data: int, n_model: int,
                         outside=True, outside_max_bytes=outside_max)
 
 
+def train_contract(steps: int, *, shard_numel: int, plane: str = "data",
+                   n_model: int = 1, gather_bytes: int = 0,
+                   precond_beta: float = 0.0) -> CommContract:
+    """The contract of ``init_state`` then ``steps`` ``train_step``s with
+    a mesh (``optim.ranl_llm.mesh_sizes`` gives ``shard_numel``, the
+    elements of this rank's params shard, ``plane``, the worker plane's
+    name in the log, ``n_model`` and ``gather_bytes``, the bytes of the
+    cut leaves an all-gather over "model" sends)."""
+    passes = 2 if precond_beta > 0.0 else 1
+
+    def pass_of(n, units):
+        return Budget(dim=plane, period=1, units=units, min_bytes=4 * n,
+                      max_bytes=4 * n + TRAIN_SMALL, dtypes=("float32",))
+    gather = Budget(dim="model", period=1, units=steps,
+                    min_bytes=gather_bytes,
+                    max_bytes=gather_bytes + TRAIN_SMALL, dtypes=("uint8",),
+                    op="all_gather")
+    budgets = [pass_of(passes * shard_numel, steps)]
+    init = [pass_of(shard_numel, 1)]
+    if n_model > 1:
+        budgets += [gather, Budget(dim="model", period=1, units=steps,
+                                   min_bytes=4, max_bytes=TRAIN_SMALL,
+                                   dtypes=("float32",))]
+        init.append(dataclasses.replace(gather, units=1))
+    return CommContract(rounds=steps, budgets=tuple(budgets), outside=True,
+                        init_budgets=tuple(init))
+
+
 def memory_ceiling(engine: str, opts, *, dim: int,
                    n_model: int = 1) -> int | None:
     """The largest tensor, in bytes, a run may make: for the 2-D
@@ -164,12 +215,17 @@ def check_log(contract: CommContract, log) -> dict:
     outside-the-loop collectives."""
     bad = []
     matched = [[0] * b.units for b in contract.budgets]
+    at_init = [0] * len(contract.init_budgets)
     caps = dict(contract.caps)
     small = capped = outside = 0
     for rec in log:
         if rec.round is None:
             outside += 1
-            if not contract.outside:
+            hit = next((i for i, b in enumerate(contract.init_budgets)
+                        if b.matches(rec)), None)
+            if hit is not None:
+                at_init[hit] += 1
+            elif not contract.outside or contract.init_budgets:
                 bad.append(f"collective outside the loop: {rec}")
             elif (contract.outside_max_bytes is not None
                   and rec.nbytes > contract.outside_max_bytes):
@@ -181,9 +237,7 @@ def check_log(contract: CommContract, log) -> dict:
                        f"{contract.rounds}: {rec}")
             continue
         for i, b in enumerate(contract.budgets):
-            if (rec.dim == b.dim and rec.op == "sum"
-                    and rec.dtype in b.dtypes
-                    and b.min_bytes <= rec.nbytes <= b.max_bytes):
+            if b.matches(rec):
                 unit = (rec.round - 1) // b.period
                 if unit < b.units:
                     matched[i][unit] += 1
@@ -204,7 +258,12 @@ def check_log(contract: CommContract, log) -> dict:
                 bad.append(f"{n} param-sized all-reduces over {b.dim!r} "
                            f"in unit {unit} ({b.period} round(s)), "
                            f"expected 1")
-    counts = {f"{b.dim}/{b.period}": per_unit
+    for b, n in zip(contract.init_budgets, at_init):
+        if n != b.units:
+            bad.append(f"{n} {b.op} over {b.dim!r} outside the loop, "
+                       f"expected {b.units}")
+    counts = {f"{b.dim}/{b.period}"
+              + ("" if b.op == "sum" else f"/{b.op}"): per_unit
               for b, per_unit in zip(contract.budgets, matched)}
     counts.update(small_in_loop=small, capped_in_loop=capped,
                   outside_loop=outside)

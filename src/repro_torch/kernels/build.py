@@ -1,10 +1,13 @@
 """Builds the port's CUDA C++ kernels with ``nvcc`` and loads them.
 
 Each source ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and
-compiles on its own into ``build/kernels/<name>-<hash>.so`` at the root of
-the checkout (``build/`` is git-ignored), where ``<hash>`` covers the
-source, every header ``csrc/*.cuh`` and the flags: a library is rebuilt
-only when one of them changes.
+compiles on its own into ``<name>-<hash>.so`` in ``BUILD_DIR``, where
+``<hash>`` covers the source, every header ``csrc/*.cuh`` and the flags:
+a library is rebuilt only when one of them changes.  ``BUILD_DIR`` is
+``build/kernels/`` at the root of the checkout when the package sits
+under its ``src/`` (``build/`` is git-ignored); for an installed package
+it is ``$REPRO_TORCH_BUILD_DIR`` when set, else the user's cache,
+``$XDG_CACHE_HOME/repro_torch/kernels`` (``~/.cache/...`` without it).
 The library is loaded with ``ctypes``.  Nothing is built when this module
 is imported; ``library(name)`` builds at first use, and ``build_all()``
 starts one ``nvcc`` per source, all at once.  This is the one module that
@@ -25,7 +28,25 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def build_dir(module: Path = Path(__file__)) -> Path:
+    """Where the libraries go, for this module at ``module``: the
+    checkout's ``build/kernels`` when the package lies in ``<root>/src/``
+    beside a ``pyproject.toml``; else ``$REPRO_TORCH_BUILD_DIR``; else
+    the user's cache directory."""
+    root = module.resolve().parents[3]
+    if (module.resolve().parents[2].name == "src"
+            and (root / "pyproject.toml").is_file()):
+        return root / "build" / "kernels"
+    if os.environ.get("REPRO_TORCH_BUILD_DIR"):
+        return Path(os.environ["REPRO_TORCH_BUILD_DIR"])
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / "repro_torch" / "kernels"
+
+
+BUILD_DIR = build_dir()
 SOURCES = ("flash_attention", "rwkv_wkv", "chol_update")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -19,15 +19,31 @@ the spans, a summary; ``python -m repro_torch.obs.report PATH`` renders
 it) and ``--trace PATH`` a Chrome trace of ``execute`` spans (one a
 step, timed by CUDA events on the card) and the ``checkpoint`` span.
 The port runs eagerly, so it has no ``lower``/``compile`` spans and no
-compiled HLO for ``--dump-hlo`` to write.  Not ported yet:
-``--data-shards``/``--model-shards``/``--pods`` above 1 (ROADMAP Queue 1
-item 14c).
+compiled HLO for ``--dump-hlo`` to write.
+
+``--data-shards``/``--model-shards``/``--pods`` above 1 train on a mesh
+(``launch.mesh.make_engine_mesh``; ``--data-shards`` alone: a 1-D
+``("data",)`` mesh), one process a rank, SPMD:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
+      --smoke --data-shards 2
+
+The CLI uses the process group it finds initialised, else initialises
+one from torchrun's environment (NCCL on the card, gloo for ``--device
+cpu``).  Workers and batch shard over ("pod", "data"), params and RANL
+state over "model" (``optim.ranl_llm``); every rank builds the same
+params and batches from ``--seed``.  Rank 0 alone prints and writes
+``--journal``, ``--trace`` and ``--checkpoint-dir`` (a model-sharded
+checkpoint is gathered to full leaves first).  ``--optimizer adamw``
+under a mesh records the mesh in the journal header and runs the full
+unsharded step on every rank, as the reference does.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from contextlib import nullcontext
 
@@ -41,11 +57,8 @@ from ..device import resolve_device
 from ..models import init_model, lm_loss
 from ..obs import Journal, Tracer, make_header
 from ..optim import (AdamWConfig, RanlLLMConfig, adamw_init, adamw_step,
-                     init_state, train_step)
+                     gather_tree, init_state, shard_params, train_step)
 from ..optim.first_order import value_and_grad
-
-_SHARDED_ITEM = ("ROADMAP Queue 1 item 14c (sharded deep-net training on "
-                 "torch.distributed)")
 
 
 def build_loss(cfg, q_chunk=1024, kv_chunk=1024):
@@ -68,13 +81,12 @@ def _parser():
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--data-shards", type=int, default=1,
                     help="shard the worker/batch axes over this many "
-                         "devices (not ported yet above 1)")
+                         "ranks")
     ap.add_argument("--model-shards", type=int, default=1,
                     help="shard parameter/tensor axes over this many "
-                         "devices (not ported yet above 1)")
+                         "ranks")
     ap.add_argument("--pods", type=int, default=1,
-                    help="prepend a 'pod' axis to the mesh (not ported "
-                         "yet above 1)")
+                    help="prepend a 'pod' axis to the mesh")
     ap.add_argument("--dump-hlo", default="", metavar="PATH",
                     help="the reference's compiled-HLO report; the port "
                          "compiles no HLO, so this exits")
@@ -128,7 +140,7 @@ def _parser():
 
 
 def _check(args):
-    """The reference's SystemExit checks, then what is not ported yet."""
+    """The reference's SystemExit checks, and the mesh's arithmetic."""
     if args.dump_hlo and args.optimizer != "ranl":
         raise SystemExit("--dump-hlo reports the RANL train step; rerun "
                          "with --optimizer ranl (the baseline optimizers "
@@ -146,16 +158,57 @@ def _check(args):
                          "with --optimizer ranl")
     if args.pods < 1:
         raise SystemExit(f"--pods {args.pods} must be >= 1")
-    for flag, value in (("--data-shards", args.data_shards),
-                        ("--model-shards", args.model_shards),
-                        ("--pods", args.pods)):
-        if value > 1:
-            raise NotImplementedError(
-                f"{flag} {value}: sharded training is not ported yet; "
-                f"see {_SHARDED_ITEM}")
+    plane = args.pods * args.data_shards
+    if _sharded(args) and args.workers % plane:
+        raise SystemExit(
+            f"num_workers={args.workers} must divide evenly across the "
+            f"{plane}-way ('pod', 'data') mesh axes")
+    if _sharded(args) and args.batch % args.workers:
+        raise SystemExit(f"--batch {args.batch} must divide evenly across "
+                         f"--workers {args.workers}")
     if args.dump_hlo:
         raise SystemExit("--dump-hlo: the PyTorch port runs eagerly and "
                          "compiles no HLO to write or analyze")
+
+
+def _sharded(args) -> bool:
+    return max(args.data_shards, args.model_shards, args.pods) > 1
+
+
+def _mesh(args, device):
+    """The run's mesh (None without a shard flag above 1), on the process
+    group found initialised or else started from torchrun's environment;
+    the reference's SystemExits where the ranks do not match."""
+    if not _sharded(args):
+        return None
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from .mesh import make_engine_mesh
+    n = args.pods * args.data_shards * args.model_shards
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise SystemExit(
+                f"mesh ({args.pods}, {args.data_shards}, "
+                f"{args.model_shards}) needs {n} ranks but this is one "
+                f"process; start one process a rank with torchrun "
+                f"--nproc-per-node {n}")
+        dist.init_process_group("nccl" if device.type == "cuda"
+                                else "gloo")
+    if args.pods > 1 or args.model_shards > 1:
+        try:
+            return make_engine_mesh(args.data_shards, args.model_shards,
+                                    pods=args.pods,
+                                    device_type=device.type)
+        except ValueError as e:
+            raise SystemExit(str(e)) from e
+    if dist.get_world_size() != args.data_shards:
+        raise SystemExit(
+            f"--data-shards {args.data_shards} needs that many ranks but "
+            f"the process group has {dist.get_world_size()}; start one "
+            f"process a rank with torchrun --nproc-per-node "
+            f"{args.data_shards}")
+    return init_device_mesh(device.type, (args.data_shards,),
+                            mesh_dim_names=("data",))
 
 
 class _Hetero:
@@ -163,7 +216,7 @@ class _Hetero:
     controller's state and telemetry, each round's mask allocation, and
     the simulated clock."""
 
-    def __init__(self, args, params, ko, device):
+    def __init__(self, args, params, ko, device, say=print):
         from ..hetero import (initial_telemetry, make_controller,
                               make_scenario, uniform_cost)
         from ..optim import region_layout, region_param_counts
@@ -183,7 +236,7 @@ class _Hetero:
                                        device)
         self.sim_s = 0.0
         if scen:
-            print(f"scenario: {scen.name} (controller "
+            say(f"scenario: {scen.name} (controller "
                   f"{args.controller or 'policy shim'})")
 
     def _work(self, masks):
@@ -225,6 +278,15 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _local_device(device):
+    """The card of this rank under torchrun (``LOCAL_RANK``)."""
+    if device.type == "cuda" and device.index is None \
+            and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    return device
+
+
 def run(argv=None):
     args = _parser().parse_args(argv)
     _check(args)
@@ -232,6 +294,14 @@ def run(argv=None):
     if args.smoke:
         cfg = smoke_variant(cfg)
     device = resolve_device(args.device)
+    if _sharded(args):
+        device = _local_device(device)
+    mesh = _mesh(args, device)
+    main = mesh is None or mesh.get_rank() == 0
+    say = print if main else (lambda *a, **k: None)
+    if mesh is not None:
+        say(f"mesh: {tuple(mesh.mesh.shape)} {mesh.mesh_dim_names} over "
+            f"{device.type}")
     _, _, ko = prng.split(prng.PRNGKey(args.seed), 3)
     g = torch.Generator(device=device).manual_seed(args.seed)
 
@@ -243,28 +313,37 @@ def run(argv=None):
         return make_batch(cfg, g, args.batch, args.seq, pattern=args.pattern)
     batch0 = next_batch()
     history = []
-    journal = Journal(args.journal) if args.journal else None
-    tracer = Tracer() if args.trace else None
+    journal = Journal(args.journal) if args.journal and main else None
+    tracer = Tracer() if args.trace and main else None
 
     def tspan(name, **meta):
         return (tracer.span(name, device=device, **meta)
                 if tracer is not None else nullcontext())
 
     def header(engine, options, scenario=None, **extra):
-        return make_header(engine=engine, options=options,
+        return make_header(engine=engine, options=options, mesh=mesh,
                            scenario=scenario,
                            extra={"arch": args.arch, "steps": args.steps,
                                   "batch": args.batch, "seq": args.seq,
                                   **extra})
 
+    on_mesh = {}
     if args.optimizer == "ranl":
         rcfg = RanlLLMConfig(num_workers=args.workers,
                              keep_prob=args.keep_prob, mu=args.mu,
                              lr=args.lr,
                              compression=args.compression or None)
-        state = init_state(params, loss_fn, batch0, rcfg, ko)
-        hetero = (_Hetero(args, params, ko, device)
+        hetero = (_Hetero(args, params, ko, device, say)
                   if args.scenario or args.controller else None)
+        if mesh is not None:
+            from ..core.collectives import Collectives
+            from .mesh import model_shards
+            from .shard import ranl_state_pspecs
+            on_mesh = {"mesh": mesh, "coll": Collectives(mesh),
+                       "pspecs": {"state": ranl_state_pspecs(
+                           params, model_shards(mesh))}}
+            params = shard_params(params, mesh, on_mesh["pspecs"])
+        state = init_state(params, loss_fn, batch0, rcfg, ko, **on_mesh)
         if journal is not None:
             journal.write(header("train:ranl", rcfg,
                                  scenario=args.scenario or None,
@@ -277,7 +356,7 @@ def run(argv=None):
             with tspan("execute", step=t):
                 params, state, metrics = train_step(
                     params, state, batch, ko, loss_fn=loss_fn, cfg=rcfg,
-                    masks=masks)
+                    masks=masks, **on_mesh)
             sim_note = "" if hetero is None else hetero.observe(masks, t)
             if (journal is not None or t % args.log_every == 0
                     or t == args.steps - 1):
@@ -291,7 +370,7 @@ def run(argv=None):
                 if journal is not None:
                     journal.write({"kind": "round", "t": t + 1, **metrics})
                 if t % args.log_every == 0:
-                    print(f"step {t:4d} loss={metrics['loss']:.4f} "
+                    say(f"step {t:4d} loss={metrics['loss']:.4f} "
                           f"cov={metrics['coverage']:.2f} "
                           f"uplink={metrics['uplink_frac']:.2f} "
                           f"({metrics['step_s']:.2f}s){sim_note}")
@@ -313,13 +392,15 @@ def run(argv=None):
                 if journal is not None:
                     journal.write({"kind": "round", "t": t + 1, **rec})
                 if t % args.log_every == 0:
-                    print(f"step {t:4d} loss={rec['loss']:.4f}")
+                    say(f"step {t:4d} loss={rec['loss']:.4f}")
 
-    if args.checkpoint_dir:
+    if args.checkpoint_dir and on_mesh:
+        params = gather_tree(params, **on_mesh)
+    if args.checkpoint_dir and main:
         _sync(device)
         with tspan("checkpoint"):
             save(params, args.checkpoint_dir, step=args.steps)
-        print(f"saved checkpoint to {args.checkpoint_dir}")
+        say(f"saved checkpoint to {args.checkpoint_dir}")
     if journal is not None:
         if tracer is not None:
             for srec in tracer.span_records():
@@ -328,12 +409,12 @@ def run(argv=None):
                        "first_loss": history[0]["loss"],
                        "final_loss": history[-1]["loss"]})
         journal.close()
-        print(f"wrote journal to {args.journal}")
+        say(f"wrote journal to {args.journal}")
     if tracer is not None:
         tracer.write_chrome(args.trace)
-        print(f"wrote chrome trace to {args.trace}")
-    print(json.dumps({"final_loss": history[-1]["loss"],
-                      "first_loss": history[0]["loss"]}))
+        say(f"wrote chrome trace to {args.trace}")
+    say(json.dumps({"final_loss": history[-1]["loss"],
+                    "first_loss": history[0]["loss"]}))
     return history
 
 

@@ -11,10 +11,12 @@ from .first_order import (  # noqa: F401
 )
 from .ranl_llm import (  # noqa: F401
     RanlLLMConfig,
+    gather_tree,
     init_state,
     masked_aggregate,
     per_worker_grads,
     region_layout,
     region_param_counts,
+    shard_params,
     train_step,
 )

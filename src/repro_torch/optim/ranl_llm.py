@@ -18,8 +18,37 @@ stacks layers on a leading axis; the four places where that layout shows
 reproduce the stacked one: region ids (``region_layout``), the Newton
 step's statistics over all layers of a leaf (``newton_step``), int8
 scales per (worker, layer) (``quantize_memory(layer=True)``) and the
-per-region parameter counts.  The reference's mesh plumbing (worker and
-batch axes sharded over a data axis) is not ported yet: ``mesh=`` raises.
+per-region parameter counts.
+
+With ``mesh=`` (a ``DeviceMesh`` with a "data" dimension, and "pod" and
+"model" ones where wanted; ``launch.mesh.make_engine_mesh``) the step
+runs SPMD on every rank, the reference's ``mesh=`` path:
+
+* workers over the plane ("pod", "data"): rank p of the plane (pod-major)
+  owns workers [p·n, (p+1)·n), n = N / plane size, and runs only their
+  forwards and backwards on its rows of the global batch, which reaches
+  every rank whole;
+* masks drawn on every rank from the same key (replicated), so the
+  coverage counts need no collective;
+* each rank's workers' contributions ``where(covered, m·G/count, C/N)``
+  summed into one flat f32 buffer (with the N losses, and, under
+  ``precond_beta``, the squared gradients), then ONE all-reduce over the
+  plane a step — the reference's single-reduction form; memory C stays
+  on the rank that owns the worker;
+* over "model" M: params, precond and memory are stored as this rank's
+  shard, on the dim ``launch.shard.params_pspecs`` names.  Every model
+  rank runs each of its workers' whole forward on params all-gathered
+  over "model" (one all-gather a step), compresses and encodes the
+  worker's full gradient, and keeps its shard of it: no (N, *leaf)
+  gradient is ever made.  The Newton step's ‖Δ‖ and the grad norm sum
+  over "model" in one small all-reduce a step; mean(h) comes from
+  partial sums that ride the all-gather, ‖p‖ from the gathered params.
+
+``pspecs`` (``{"state": launch.shard.ranl_state_pspecs(full params,
+M)}``) tells which dim of each leaf is cut; it is needed when M > 1.
+Every collective goes through a ``core.collectives.Collectives``
+recorder (``coll=``), whose log ``analysis.contracts.train_contract``
+holds.
 """
 
 from __future__ import annotations
@@ -30,18 +59,11 @@ import numpy as np
 import torch
 
 from .. import prng
+from ..core.collectives import Collectives
 from ..core.masks import PolicyConfig, sample_masks
+from ..launch.shard import BATCH, MODEL, local_shard, model_dim
 from ..tree import get, leaf_paths, leaves, num_layers, put, rebuild
 from .first_order import value_and_grad
-
-_MESH_ITEM = ("ROADMAP Queue 1 item 14c (sharded deep-net training on "
-              "torch.distributed)")
-
-
-def _no_mesh(mesh, what: str):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...) is not ported yet; see {_MESH_ITEM}")
 
 
 @dataclass(frozen=True)
@@ -181,12 +203,19 @@ def split_batch(batch, num_workers: int):
 
 
 def per_worker_grads(loss_fn, params, batch, num_workers: int, *,
-                     mesh=None):
+                     mesh=None, pspecs=None, coll=None):
     """One forward and backward per worker, in worker order.  batch
     leaves (B, ...).  Returns (losses (N,), G): G shaped like ``params``
     with a leading worker axis on every leaf (a leaf the loss does not
-    reach gets zeros, as the reference's gradient does)."""
-    _no_mesh(mesh, "per_worker_grads")
+    reach gets zeros, as the reference's gradient does).
+
+    With ``mesh``: ``params`` is this rank's shard; only this rank's
+    workers run, and it returns their losses (n,) and its shard of their
+    gradients, (n, *shard) a leaf."""
+    if mesh is not None:
+        return _per_worker_grads_mesh(loss_fn, params, batch, num_workers,
+                                      _Mesh(mesh, params, coll, pspecs,
+                                            num_workers))
     wb = split_batch(batch, num_workers)
     G, losses = None, []
     for i in range(num_workers):
@@ -252,11 +281,17 @@ def _sq_mean(G):
 # --------------------------------------------------------------------------
 
 def init_state(params, loss_fn, batch, cfg: RanlLLMConfig, key,
-               precond_batches=None, mesh=None):
+               precond_batches=None, mesh=None, pspecs=None, coll=None):
     """Round 0: the one-shot curvature (the workers' mean squared
     gradients at x⁰, averaged over ``precond_batches`` too) and the
-    memory seeded with the init gradients."""
-    _no_mesh(mesh, "init_state")
+    memory seeded with the init gradients.  With ``mesh``: ``params`` is
+    this rank's shard, and so is the state returned (memory: this rank's
+    workers only); the curvature is one plane all-reduce."""
+    if mesh is not None:
+        return _init_state_mesh(params, loss_fn, batch, cfg,
+                                precond_batches,
+                                _Mesh(mesh, params, coll, pspecs,
+                                      cfg.num_workers))
     _, G0 = per_worker_grads(loss_fn, params, batch, cfg.num_workers)
     C = rebuild(G0, lambda keys, layer: _encode_memory(
         get(G0, keys, layer), cfg, layer is not None))
@@ -337,8 +372,18 @@ def _f32_mean(x):
     return x.float().sum() * float(np.float32(1.0) / np.float32(x.numel()))
 
 
+def _round_masks(params, state, rng, cfg, masks):
+    num_regions, _, _ = region_layout(params)
+    device = leaves(params)[0].device
+    step = int(state["step"])
+    if masks is None:
+        masks = sample_masks(cfg.policy, prng.fold_in(rng, step), step,
+                             cfg.num_workers, num_regions, device)
+    return step, masks.to(device)
+
+
 def train_step(params, state, batch, rng, *, loss_fn, cfg: RanlLLMConfig,
-               mesh=None, masks=None):
+               mesh=None, pspecs=None, masks=None, coll=None):
     """One RANL round.  Returns (new_params, new_state, metrics).
 
     ``rng``: a ``repro_torch.prng`` key; the round's masks are
@@ -346,15 +391,21 @@ def train_step(params, state, batch, rng, *, loss_fn, cfg: RanlLLMConfig,
     reference's draw, unless ``masks`` (bool (N, Q)) is given — the hook
     the closed-loop controllers use.  metrics: loss (the workers' mean),
     grad_norm (of the aggregate), coverage (share of regions covered) and
-    uplink_frac (share of (worker, region) pairs sent)."""
-    _no_mesh(mesh, "train_step")
-    num_regions, _, _ = region_layout(params)
-    device = leaves(params)[0].device
-    step = int(state["step"])
-    if masks is None:
-        masks = sample_masks(cfg.policy, prng.fold_in(rng, step), step,
-                             cfg.num_workers, num_regions, device)
-    masks = masks.to(device)
+    uplink_frac (share of (worker, region) pairs sent).
+
+    With ``mesh`` (SPMD: every rank calls it with the same arguments):
+    ``params`` and ``state`` are this rank's shards, as ``init_state``
+    returns them, and so are the new ones; the metrics are every rank's.
+    ``pspecs``: ``{"state": launch.shard.ranl_state_pspecs(full params,
+    M)}``, needed when the mesh has M > 1 model shards.  ``coll``: the
+    ``Collectives`` recorder to log into (a new one when None); the
+    step's collectives are logged as round ``step + 1``."""
+    m = None if mesh is None else _Mesh(mesh, params, coll, pspecs,
+                                        cfg.num_workers)
+    step, masks = _round_masks(params, state, rng, cfg, masks)
+    if m is not None:
+        return _train_step_mesh(params, state, batch, step, masks,
+                                loss_fn, cfg, m)
     losses, G = per_worker_grads(loss_fn, params, batch, cfg.num_workers)
     g, C_new, gsq = aggregate(G, state["memory"], masks, params, cfg)
 
@@ -373,3 +424,368 @@ def train_step(params, state, batch, rng, *, loss_fn, cfg: RanlLLMConfig,
                "coverage": _f32_mean(masks.any(dim=0)),
                "uplink_frac": _f32_mean(masks)}
     return new_params, new_state, metrics
+
+
+# --------------------------------------------------------------------------
+# the mesh path: workers over ("pod", "data"), params and state over "model"
+# --------------------------------------------------------------------------
+
+def _port_leaves(tree):
+    """[(keys, layered, layer)]: every leaf, each layer's apart, in the
+    reference's order."""
+    L = num_layers(tree)
+    return [(keys, layered, layer) for keys, layered in leaf_paths(tree)
+            for layer in (range(L) if layered else (None,))]
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+class _Mesh:
+    """One call's view of the mesh: the worker plane and this rank's
+    workers in it, the model extent and rank, and the dim of each leaf
+    that "model" cuts (from ``pspecs``; none when M is 1)."""
+
+    def __init__(self, mesh, params, coll, pspecs, num_workers=None):
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh, "
+                            f"got {type(mesh).__name__}")
+        names = tuple(mesh.mesh_dim_names or ())
+        self.plane = tuple(a for a in BATCH if a in names)
+        if not self.plane:
+            raise ValueError(f"mesh {names} has no 'data' axis to shard "
+                             f"workers over")
+        self.coll = Collectives(mesh) if coll is None else coll
+        n = self.coll.size(self.plane)
+        if num_workers is not None:
+            if num_workers % n:
+                raise ValueError(
+                    f"num_workers={num_workers} must divide evenly across "
+                    f"the {n}-way {self.plane} mesh axes")
+            self.n_local = num_workers // n
+            self.start = self.coll.rank(self.plane) * self.n_local
+        self.n_model = self.coll.size(MODEL) if MODEL in names else 1
+        self.m_rank = self.coll.rank(MODEL) if self.n_model > 1 else 0
+        specs = None
+        if self.n_model > 1:
+            if not pspecs or "state" not in pspecs:
+                raise ValueError(
+                    f"a mesh with {self.n_model} model shards needs "
+                    f"pspecs={{'state': launch.shard.ranl_state_pspecs("
+                    f"full params, {self.n_model})}}: a shard does not "
+                    f"tell which dim was cut")
+            specs = pspecs["state"]["precond"]
+        self.dims = {(keys, layer): (None if specs is None else model_dim(
+            get(specs, keys, layer))) for keys, _, layer in
+            _port_leaves(params)}
+
+    def cut(self, t, key, lead: int = 0):
+        """This rank's shard of a full leaf (``lead`` leading axes before
+        the leaf's own)."""
+        d = self.dims[key]
+        return local_shard(t, None if d is None else d + lead, self.m_rank,
+                           self.n_model)
+
+    def scale_cut(self, key, ndim: int) -> bool:
+        """Whether the int8 scale of a memory leaf of ``ndim`` dims (the
+        worker axis included) keeps the cut dim: only a glue leaf of two
+        or more dims keeps its dim 0 (a scale a (worker, row))."""
+        return key[1] is None and ndim > 2 and self.dims[key] == 0
+
+    def cut_encoded(self, enc, key):
+        """One worker's encoded memory leaf (a leading axis of 1) cut to
+        this rank's shard."""
+        if not isinstance(enc, dict):
+            return self.cut(enc, key, 1)
+        scale = enc["scale"]
+        if self.scale_cut(key, enc["q"].ndim):
+            scale = self.cut(scale, key, 1)
+        return {"q": self.cut(enc["q"], key, 1), "scale": scale}
+
+    def full(self, params, extra=None):
+        """(params all-gathered over "model", every model rank's
+        ``extra`` (f32 (k,)) as (M, k)) — one all-gather of the cut
+        leaves' bytes and ``extra``; no collective when M is 1."""
+        if self.n_model == 1:
+            return params, None
+        cut = [(key, get(params, *key)) for key, d in self.dims.items()
+               if d is not None]
+        parts, sizes = [], []
+        for _, t in cut + ([(None, extra.float())] if extra is not None
+                           else []):
+            b = t.contiguous().view(-1).view(torch.uint8)
+            sizes.append(_pad16(b.numel()))
+            parts.append(torch.nn.functional.pad(
+                b, (0, sizes[-1] - b.numel())))
+        wire = self.coll.all_gather(torch.cat(parts), "model")
+        del parts
+        vals, off = {}, 0
+        for (key, t), nb in zip(cut, sizes):
+            n = t.numel() * t.element_size()
+            vals[key] = torch.cat(
+                [wire[r, off:off + n].view(t.dtype).view(t.shape)
+                 for r in range(self.n_model)], dim=self.dims[key])
+            off += nb
+        got = None
+        if extra is not None:
+            got = wire[:, off:off + extra.numel() * 4].contiguous().view(
+                torch.float32)
+        del wire
+        return rebuild(params, lambda keys, layer: vals.get(
+            (keys, layer), get(params, keys, layer))), got
+
+    def flat(self, params, device, copies: int = 1, extra: int = 0):
+        """(a zero f32 buffer of ``copies`` passes over this rank's
+        shard plus ``extra`` floats, [{key: a view shaped like the leaf}
+        for each pass])"""
+        n = sum(get(params, *key).numel() for key in self.dims)
+        buf = torch.zeros(copies * n + extra, dtype=torch.float32,
+                          device=device)
+        views, off = [], 0
+        for _ in range(copies):
+            v = {}
+            for key in self.dims:
+                t = get(params, *key)
+                v[key] = buf[off:off + t.numel()].view(t.shape)
+                off += t.numel()
+            views.append(v)
+        return buf, views, n
+
+    def worker_batches(self, batch, num_workers: int):
+        """[(global worker index, its rows of ``batch``)] for this rank's
+        workers."""
+        wb = split_batch(batch, num_workers)
+        return [(i, {k: v[i] for k, v in wb.items()})
+                for i in range(self.start, self.start + self.n_local)]
+
+
+def _put_worker(store, key, j: int, n: int, enc):
+    """``store[key][j] = enc`` (one worker's leaf, a leading axis of 1),
+    allocating ``store[key]`` with ``n`` workers at first use."""
+    if isinstance(enc, dict):
+        if key not in store:
+            store[key] = {k: v.new_empty((n,) + v.shape[1:])
+                          for k, v in enc.items()}
+        for k, v in enc.items():
+            store[key][k][j] = v[0]
+    else:
+        if key not in store:
+            store[key] = enc.new_empty((n,) + enc.shape[1:])
+        store[key][j] = enc[0]
+
+
+def _worker_of(C, j: int):
+    """Worker ``j``'s row of a memory leaf, keeping a leading axis."""
+    if isinstance(C, dict):
+        return {k: v[j:j + 1] for k, v in C.items()}
+    return C[j:j + 1]
+
+
+def _per_worker_grads_mesh(loss_fn, params, batch, num_workers, m):
+    full, _ = m.full(params)
+    losses, G = [], {}
+    for j, (_, b) in enumerate(m.worker_batches(batch, num_workers)):
+        loss, grads = value_and_grad(loss_fn, full, b)
+        for key in m.dims:
+            _put_worker(G, key, j, m.n_local, m.cut(get(grads, *key)[None],
+                                                   key, 1))
+        losses.append(loss)
+        del grads
+    return torch.stack(losses), rebuild(params, lambda keys, layer:
+                                        G[keys, layer])
+
+
+def _init_state_mesh(params, loss_fn, batch, cfg, precond_batches, m):
+    device = leaves(params)[0].device
+    full, _ = m.full(params)
+    buf, (h,), _ = m.flat(params, device)
+    C = {}
+    batches = [batch, *(precond_batches or ())]
+    for bi, b in enumerate(batches):
+        for j, (_, wb) in enumerate(m.worker_batches(b, cfg.num_workers)):
+            _, grads = value_and_grad(loss_fn, full, wb)
+            for keys, layered, layer in _port_leaves(params):
+                G = get(grads, keys, layer)
+                h[keys, layer] += torch.square(m.cut(G, (keys, layer)).float())
+                if bi == 0:
+                    _put_worker(C, (keys, layer), j, m.n_local,
+                                m.cut_encoded(_encode_memory(
+                                    G[None], cfg, layered), (keys, layer)))
+            del grads
+    del full
+    m.coll.all_reduce(buf, m.plane)
+    buf /= cfg.num_workers * len(batches)
+    return {"step": torch.zeros((), dtype=torch.int32),
+            "precond": rebuild(params, lambda keys, layer: h[keys, layer]),
+            "memory": rebuild(params, lambda keys, layer: C[keys, layer])}
+
+
+def _train_step_mesh(params, state, batch, step, masks, loss_fn, cfg, m):
+    N, beta = cfg.num_workers, cfg.precond_beta
+    device = leaves(params)[0].device
+    _, L, infos = region_layout(params)
+    refs = leaf_paths(params)
+    idx = {keys: (range(L) if layered else (None,)) for keys, layered in refs}
+    cut = [keys for keys, _ in refs if m.dims[keys, idx[keys][0]] is not None]
+    # a leaf's mask is one bool a worker: the covered/uncovered choice and
+    # the count are made on the host, so no branch is computed twice
+    on = {}
+    for (keys, layered), hm in zip(refs, leaf_masks(masks.cpu(), infos,
+                                                    cfg.protect_glue)):
+        for layer in idx[keys]:
+            on[keys, layer] = hm[:, 0 if layer is None else layer].tolist()
+    saved, m.coll.round = m.coll.round, step + 1
+    precond = state["precond"]
+    # mean(h) of a cut leaf: this rank's partial sums ride the all-gather
+    hpart = (torch.stack([sum(get(precond, keys, q).float().sum()
+                              for q in idx[keys]) for keys in cut])
+             if cut else None)
+    full, hparts = m.full(params, hpart)
+    pn2 = {keys: sum(torch.sum(torch.square(get(full, keys, q).float()))
+                     for q in idx[keys]) for keys, _ in refs}
+    copies = 2 if beta > 0.0 else 1
+    buf, views, P = m.flat(params, device, copies,
+                           N + (len(refs) if beta > 0.0 else 0))
+    gv = views[0]
+    losses = buf[copies * P:copies * P + N]
+    C_new = {}
+    for j, (i, wb) in enumerate(m.worker_batches(batch, N)):
+        loss, grads = value_and_grad(loss_fn, full, wb)
+        losses[i] = loss
+        for r, (keys, layered) in enumerate(refs):
+            for layer in idx[keys]:
+                key = (keys, layer)
+                G = get(grads, keys, layer)
+                if beta > 0.0:
+                    views[1][key] += torch.square(m.cut(G, key).float())
+                    buf[copies * P + N + r] += torch.sum(
+                        torch.square(G.float()))
+                if cfg.compression == "int8":
+                    G = dequantize_memory(quantize_memory(
+                        G[None], layer=layered))[0].to(G.dtype)
+                elif cfg.compression == "bf16":
+                    G = G.to(torch.bfloat16).to(G.dtype)
+                count = sum(on[key])
+                Gs = m.cut(G, key)
+                C_j = _worker_of(get(state["memory"], keys, layer), j)
+                if not count:               # uncovered: the memory's mean
+                    gv[key] += _decode_memory(C_j, cfg, G.dtype)[0] / N
+                elif on[key][i]:            # m·G/count; 0 where m is off
+                    gv[key] += Gs / float(count)
+                if not on[key][i]:
+                    enc = C_j
+                elif cfg.memory_int8:
+                    enc = m.cut_encoded(_encode_memory(G[None], cfg,
+                                                       layered), key)
+                else:
+                    enc = _encode_memory(Gs[None], cfg, layered)
+                _put_worker(C_new, key, j, m.n_local, enc)
+        del grads
+    del full
+    m.coll.all_reduce(buf, m.plane)
+    g = {key: v.to(get(params, *key).dtype) for key, v in gv.items()}
+    hsum = {}
+    if hparts is not None:
+        hsum = dict(zip(cut, hparts.sum(dim=0)))
+    if beta > 0.0:
+        gsq = {key: v / N for key, v in views[1].items()}
+        precond = rebuild(precond, lambda keys, layer: (
+            (1.0 - beta) * get(precond, keys, layer)
+            + beta * gsq[keys, layer]))
+        for r, (keys, _) in enumerate(refs):
+            if keys in hsum:
+                hsum[keys] = ((1.0 - beta) * hsum[keys]
+                              + beta * buf[copies * P + N + r] / N)
+
+    def deltas(keys):
+        hs = [get(precond, keys, q) for q in idx[keys]]
+        n = sum(h.numel() for h in hs)
+        mean_h = (hsum[keys] / (n * m.n_model) if keys in hsum
+                  else sum(h.sum() for h in hs) / n)
+        floor = cfg.mu + cfg.mu_rel * mean_h
+        return [cfg.lr * g[keys, q].float() / torch.maximum(h, floor)
+                for q, h in zip(idx[keys], hs)]
+
+    # ‖Δ‖² and ‖g‖² of the cut leaves: one small all-reduce over "model"
+    dn2 = {keys: sum(torch.sum(torch.square(d)) for d in deltas(keys))
+           for keys, _ in refs}
+    gn2 = {key: torch.sum(torch.square(v.float())) for key, v in g.items()}
+    gn2_rep = sum(v for key, v in gn2.items() if key[0] not in hsum)
+    if hsum:
+        small = torch.stack([dn2[keys] for keys in cut]
+                            + [sum(v for key, v in gn2.items()
+                                   if key[0] in hsum)])
+        m.coll.all_reduce(small, MODEL)
+        dn2.update(zip(cut, small[:-1]))
+        gn2_rep = gn2_rep + small[-1]
+    new = {}
+    for keys, _ in refs:
+        scale = torch.clamp_max(cfg.trust_ratio * (torch.sqrt(pn2[keys])
+                                                   + 1.0)
+                                / torch.clamp_min(torch.sqrt(dn2[keys]),
+                                                  1e-20), 1.0)
+        for q, d in zip(idx[keys], deltas(keys)):
+            p = get(params, keys, q)
+            new[keys, q] = (p.float() - scale * d).to(p.dtype)
+    m.coll.round = saved
+    metrics = {"loss": losses.mean(), "grad_norm": torch.sqrt(gn2_rep),
+               "coverage": _f32_mean(masks.any(dim=0)),
+               "uplink_frac": _f32_mean(masks)}
+    return (rebuild(params, lambda keys, layer: new[keys, layer]),
+            {"step": state["step"] + 1, "precond": precond,
+             "memory": rebuild(params, lambda keys, layer:
+                               C_new[keys, layer])},
+            metrics)
+
+
+def shard_params(params, mesh, pspecs=None):
+    """This rank's shard of full ``params`` (every rank holds the same):
+    each leaf cut on the dim ``pspecs["state"]`` names for "model"; the
+    inverse of ``gather_tree``."""
+    m = _Mesh(mesh, params, None, pspecs)
+    return rebuild(params, lambda keys, layer: m.cut(
+        get(params, keys, layer), (keys, layer)))
+
+
+def gather_tree(tree, mesh, pspecs=None, coll=None, *, workers=False):
+    """A tree of this rank's shards put back together on every rank: each
+    leaf all-gathered over "model" on its cut dim (``pspecs`` as for
+    ``train_step``), and, with ``workers``, over the worker plane on dim
+    0 (memory leaves: every worker's row).  An int8 memory leaf gathers
+    its codes, and its scales where they keep the cut dim."""
+    m = _Mesh(mesh, tree, coll, pspecs)
+    lead = 1 if workers else 0
+
+    def one(t, key, cut=True):
+        if cut and m.n_model > 1 and m.dims[key] is not None:
+            t = torch.cat(list(m.coll.all_gather(t, "model")),
+                          dim=m.dims[key] + lead)
+        if workers:
+            t = torch.cat(list(m.coll.all_gather(t, m.plane)), dim=0)
+        return t
+
+    def leaf(keys, layer):
+        t = get(tree, keys, layer)
+        if isinstance(t, dict):
+            return {"q": one(t["q"], (keys, layer)),
+                    "scale": one(t["scale"], (keys, layer), m.scale_cut(
+                        (keys, layer), t["q"].ndim))}
+        return one(t, (keys, layer))
+    return rebuild(tree, leaf)
+
+
+def mesh_sizes(params, mesh, pspecs=None) -> dict:
+    """The sizes ``analysis.contracts.train_contract`` takes, for this
+    rank's params shard ``params`` on ``mesh``: ``shard_numel``,
+    ``plane`` (the worker plane's name in the log), ``n_model`` and
+    ``gather_bytes`` (the cut leaves' bytes)."""
+    m = _Mesh(mesh, params, None, pspecs)
+    ts = {key: get(params, *key) for key in m.dims}
+    return {"shard_numel": sum(t.numel() for t in ts.values()),
+            "plane": "+".join(m.plane), "n_model": m.n_model,
+            "gather_bytes": sum(t.numel() * t.element_size()
+                                for key, t in ts.items()
+                                if m.n_model > 1
+                                and m.dims[key] is not None)}

@@ -64,6 +64,9 @@ LEGS = ([("dense-1", (1,), ("data",), {}, None, 2e-5),
            for n in (2, 4) for name, kw, cost, tol in _FLAT]
         + [("quorum50-4", (4,), ("data",), {"quorum": 0.5}, "pareto", 5e-5),
            ("credit-2", (2,), ("data",), {"overlap": True}, "credit", 2e-5),
+           ("resource-2", (2,), ("data",), {"controller": "resource"},
+            "pareto", 2e-5),
+           ("record3-2", (2,), ("data",), {"record_every": 3}, None, 2e-5),
            ("hier-2x2", (2, 2), ("pod", "data"), {"hierarchy": HIER}, None,
             2e-5),
            ("hier-int8-2x2", (2, 2), ("pod", "data"),
@@ -103,7 +106,10 @@ _REFERENCE = textwrap.dedent(r"""
     out = {}
     for name, shape, dims, kw, cost in cfg["legs"]:
         mesh = jax.make_mesh(tuple(shape), tuple(dims))
+        kw = dict(kw)
+        ctrl = kw.pop("controller", None)
         r = repro.run(prob, KEY, engine="sharded", mesh=mesh,
+                      controller=ctrl,
                       cost=None if cost is None else costs[cost],
                       num_rounds=cfg["rounds"], num_regions=cfg["regions"],
                       policy=PolicyConfig(**cfg["policy"]), **kw)
@@ -163,11 +169,14 @@ _RANKS = textwrap.dedent(r"""
     for name, leg_shape, _, kw, cost in cfg["legs"]:
         if leg_shape != shape:
             continue
+        kw = dict(kw)
+        ctrl = kw.pop("controller", None)
         opts = rt.RanlOptions(num_rounds=cfg["rounds"],
                               num_regions=cfg["regions"], policy=pol, **kw)
         c = None if cost is None else costs[cost]
         run = lambda o: rt.run(prob, KEY, engine="sharded", mesh=mesh,
-                               device="cpu", options=o, cost=c)
+                               device="cpu", options=o, cost=c,
+                               controller=ctrl)
         out[name + "/seq"] = keep(run(opts.merged(overlap=False)))
         out[name + "/overlap"] = keep(run(opts.merged(overlap=True)))
 
@@ -375,7 +384,8 @@ def test_collective_log_meets_the_contract(runs, name, variant):
     in-loop collective within PARAM_SLACK, on every rank."""
     _, port = runs
     _, shape, dims, kw, _, _ = _leg(name)
-    opts = RanlOptions(num_rounds=T, num_regions=Q, **kw)
+    opts = RanlOptions(num_rounds=T, num_regions=Q, **{
+        k: v for k, v in kw.items() if k != "controller"})
     contract = engine_contract("sharded", opts, dim=D)
     for out in port[shape]:
         log = _log(out[name + variant]["log"])

@@ -220,7 +220,9 @@ def test_make_train_step_is_the_train_step():
 @pytest.mark.parametrize("fn", ["init_state", "train_step",
                                 "per_worker_grads"])
 def test_a_mesh_raises_not_implemented(fn):
-    _, tcfg = cfgs("phi4-mini-3.8b")
+    """The mesh path is ported (tests/test_torch_train_sharded.py): a
+    ``mesh=`` that is not a ``DeviceMesh`` is refused with a TypeError,
+    before anything runs."""
     params = {"embed": torch.zeros(4, 2), "layers": []}
     call = {"init_state": lambda: tr.init_state(
                 params, None, {}, tr.RanlLLMConfig(2), prng.PRNGKey(0),
@@ -230,7 +232,7 @@ def test_a_mesh_raises_not_implemented(fn):
                 cfg=tr.RanlLLMConfig(2), mesh="mesh"),
             "per_worker_grads": lambda: tr.per_worker_grads(
                 None, params, {}, 2, mesh="mesh")}[fn]
-    with pytest.raises(NotImplementedError, match="item 14c"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         call()
 
 

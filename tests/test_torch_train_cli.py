@@ -1,8 +1,8 @@
 """The port's train CLI (``repro_torch.launch.train``) on the CPU: it
 trains with RANL and AdamW, its hetero flags give the reference CLI's
-masks and simulated clock step for step, and its checks and the flags
-still to be ported raise (``--journal``/``--trace``: tests/
-test_torch_obs.py)."""
+masks and simulated clock step for step, and its checks exit
+(``--journal``/``--trace``: tests/test_torch_obs.py; the shard flags on
+gloo ranks: tests/test_torch_train_sharded.py)."""
 
 import json
 import os
@@ -80,10 +80,17 @@ def test_train_cli_system_exits(argv, match):
         ttrain.run(["--device", "cpu", "--smoke"] + argv)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--data-shards", "2"], "item 14c"), (["--model-shards", "2"],
-                                           "item 14c"),
-    (["--pods", "2"], "item 14c")], ids=str)
-def test_train_cli_unported_flags_raise_naming_their_item(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("argv,match", [
+    (["--data-shards", "2", "--workers", "3", "--batch", "6"],
+     "num_workers=3 must divide evenly across the 2-way"),
+    (["--pods", "2", "--data-shards", "2", "--workers", "6", "--batch",
+      "12"], "num_workers=6 must divide evenly across the 4-way"),
+    (["--model-shards", "2", "--batch", "6"],
+     "--batch 6 must divide evenly across --workers 4")], ids=str)
+def test_train_cli_unported_flags_raise_naming_their_item(argv, match):
+    """The shard flags are ported (tests/test_torch_train_sharded.py);
+    workers that do not divide across the ("pod", "data") plane, or a
+    batch that does not divide across the workers, exit before any
+    process group is needed."""
+    with pytest.raises(SystemExit, match=match):
         ttrain.run(["--device", "cpu", "--smoke"] + argv)
