@@ -106,11 +106,20 @@ the card and times both, then drives the port's paths at full width:
    ``hessian_rank=4`` on the dense main-path problem (N = 32, d = 8192),
    31 launches, its seconds split between eigh and the kernel; and
    ``hessian_rank=4`` at N = 32, d = 512, card against host;
-15. train_grad: gradients of a scalar loss through K3 at phi4-mini's
-   prefill (4, 1024, 24, 8, 128) in bf16 and K4 at rwkv6's (4, 1024, 40,
-   64) in f32 and in bf16, the kernel forward and the plain twin's
-   backward, against the twins' own gradients within the forward
-   tolerances (K4 in bf16: one bf16 step, ``BF16_STEP``);
+15. train_grad: the backward kernels of K3 and K4 against their plain
+   versions (``ref.flash_attention_bwd_ref``, ``ref.rwkv_wkv_bwd_ref``)
+   at the serve prefill shapes (4, 1024, 24, 8, 128) and (4, 1024, 40,
+   64) and the train shapes (2, 512, 24, 8, 128) and (2, 512, 40, 64),
+   each in f32 (within 2e-4) and bf16 (2e-2 for K3, one bf16 step,
+   ``BF16_STEP``, for K4's bf16 gradients), x (max |grad| + |grad|): one
+   launch a call, and two calls on the same inputs bit-equal; each timed
+   alone at the train shape in f32 (its row's numbers) and at the prefill
+   shape in bf16, beside its plain version, its bound and (K3) the
+   backward of ``scaled_dot_product_attention`` through autograd; and
+   gradients of a scalar loss through ``ops.flash_attention`` /
+   ``ops.rwkv_wkv`` at the train shapes (the kernel forward and the
+   backward kernel, one launch of each) against autograd through the
+   plain forwards;
 16. sharded: the 1-D sharded engine on ``torch.distributed`` (run after
    hierarchy).  (a) NCCL at world size 1 in this process: the dense and
    diag main paths, diag with ``overlap=True`` and dense with
@@ -147,9 +156,10 @@ the card and times both, then drives the port's paths at full width:
 18. train_dense / train_rwkv: RANL (``repro_torch.optim``) on phi4-mini-
    3.8b and rwkv6-3b at full width cut to 2 layers, f32, N = 4 workers,
    global batch 8, seq 512, the train CLI's ``RanlLLMConfig``:
-   ``init_state`` then 5 ``train_step``s.  K3 (K4) launches 4 x 2 x 6 =
-   48 times; each round, run again from the same inputs through the
-   plain twins, launches none and is held to the kernels' round: masks
+   ``init_state`` then 5 ``train_step``s.  K3 (K4) and its backward
+   kernel launch 4 x 2 x 6 = 48 times each; each round, run again from
+   the same inputs through the plain versions (forward and backward),
+   launches none and is held to the kernels' round: masks
    (coverage, uplink) equal, loss, params and precond within
    ``TRAIN_TOL`` (1e-3 for K3, 1e-2 for K4).  init seconds, step seconds
    split into the per-worker forwards and backwards, the aggregate and
@@ -157,7 +167,8 @@ the card and times both, then drives the port's paths at full width:
    train shape in f32 against its bound (K3 also against
    ``scaled_dot_product_attention``);
 19. train_adamw: the AdamW baseline at train_dense's size, 3 steps on the
-   full batch, against the twins' run (K3 6 launches);
+   full batch, against the twins' run (K3 and its backward 6 launches
+   each);
 20. train_cli: ``repro_torch.launch.train.run`` with --smoke on the card:
    RANL under pareto-stragglers with the resource controller and a 0.75
    quorum, then AdamW with --checkpoint-dir build/ckpt, restored bit-
@@ -168,9 +179,10 @@ the card and times both, then drives the port's paths at full width:
 22. train_sharded (run after train_cli, before examples): RANL with
    ``mesh=`` (``optim.ranl_llm``).  (a) NCCL at world size 1 in this
    process on ("data", "model") = (1, 1): train_dense's setup,
-   ``init_state`` then 3 ``train_step``s, K3 launched 4 x 2 x 4 = 32
-   times; each step (and the init) held to the unsharded step from the
-   same inputs on the card: coverage and uplink equal, loss, params and
+   ``init_state`` then 3 ``train_step``s, K3 and its backward launched
+   4 x 2 x 4 = 32 times each; each step (and the init) held to the
+   unsharded step from the same inputs on the card: coverage and uplink
+   equal, loss, params and
    precond within ``TRAIN_TOL``; the collective log within
    ``analysis.train_contract``; s a step beside the unsharded step's
    and train_dense's, peak memory beside the unsharded step's.  (b) two
@@ -203,6 +215,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -221,23 +234,30 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 L2_BYTES = 50 << 20              # H100 L2
 TIMED_CALLS = 20
 KERNELS = ("region_aggregate", "ranl_update", "flash_attention", "rwkv_wkv",
-           "chol_update")
+           "chol_update", "flash_attention_bwd", "rwkv_wkv_bwd")
 ZERO = {name: 0 for name in KERNELS}
 SOURCES = {"region_aggregate": "src/repro_torch/kernels/region_aggregate.py",
            "ranl_update": "src/repro_torch/kernels/region_aggregate.py",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
            "rwkv_wkv": "src/repro_torch/csrc/rwkv_wkv.cu",
-           "chol_update": "src/repro_torch/csrc/chol_update.cu"}
+           "chol_update": "src/repro_torch/csrc/chol_update.cu",
+           "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "rwkv_wkv_bwd": "src/repro_torch/csrc/rwkv_wkv_bwd.cu"}
 ROUTES = {"region_aggregate": "triton", "ranl_update": "triton",
           "flash_attention": "cuda", "rwkv_wkv": "cuda",
-          "chol_update": "cuda"}
+          "chol_update": "cuda", "flash_attention_bwd": "cuda",
+          "rwkv_wkv_bwd": "cuda"}
 # chol_update ports no Pallas kernel: it replaces the reference's rank-1
-# sweep, a compiled lax.scan
+# sweep, a compiled lax.scan.  No Pallas kernel has a backward: the two
+# backward kernels replace XLA's autodiff of the reference's attention
+# and checkpointed wkv scan.
 REPLACES = {"region_aggregate": "src/repro/kernels/region_aggregate.py:75",
             "ranl_update": "src/repro/kernels/region_aggregate.py:138",
             "flash_attention": "src/repro/kernels/flash_attention.py:77",
             "rwkv_wkv": "src/repro/kernels/rwkv_wkv.py:57",
-            "chol_update": "src/repro/core/compression.py:303"}
+            "chol_update": "src/repro/core/compression.py:303",
+            "flash_attention_bwd": "src/repro/models/attention.py:50",
+            "rwkv_wkv_bwd": "src/repro/models/rwkv.py:65"}
 # main-path shapes (N, D) each kernel sees: dense rounds (K1), diag (K2)
 MAIN_SHAPE = {"region_aggregate": (32, 8192), "ranl_update": (32, 4096)}
 SEEDS = 8                       # the batch engine's seeds (batch_* phases)
@@ -268,6 +288,11 @@ CHOL_RTOL = 1e-5
 # K4's bf16 gradients, x (max |grad| + |grad|), which holds two values
 # one step apart
 BF16_STEP = 2.0 ** -8
+# train_grad's shapes: (B, S, H, KV, hd) for K3, (B, S, H, hd) for K4
+GRAD_SHAPES = {"flash_attention": {"prefill": (4, 1024, 24, 8, 128),
+                                   "train": (2, 512, 24, 8, 128)},
+               "rwkv_wkv": {"prefill": (4, 1024, 40, 64),
+                            "train": (2, 512, 40, 64)}}
 # the hierarchy phase's runs: (label, problem kind, hierarchy, scenario,
 # x² … x^T tolerance x max |x| against the host run: the CPU tests', 2e-5
 # for synchronous uncompressed pods, 5e-2 under the int8 exchange)
@@ -2066,31 +2091,185 @@ def phase_lowrank(torch, rt, report, launches):
         f"max |x|; launches {counts}")
 
 
+def grad_inputs(torch, kernel, shape, dtype, gen):
+    """One input set of a backward kernel: K3's (q, k, v, o, do) with o
+    the forward kernel's output, or K4's (r, k, v, w, u, state, dy, ds)
+    with a random state and random gradients of y and the final state."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    if kernel == "flash_attention":
+        q, k, v = attn_inputs(torch, *shape, dtype, gen)
+        do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+        return q, k, v, flash_attention(q, k, v), do
+    b, s, h, hd = shape
+    dy = torch.randn(b, s, h, hd, device="cuda", generator=gen)
+    ds = torch.randn(b, h, hd, hd, device="cuda", generator=gen)
+    return (*wkv_inputs(torch, *shape, dtype, gen, True), dy, ds)
+
+
+def attn_bwd_bound(b, s, h, kv, hd, window, dtype):
+    """q, o, do read and dq written (H heads), k, v read and dk, dv
+    written (KV heads), once; the products Q Kᵀ, dO Vᵀ, dV, dK, dQ over
+    the causal pairs."""
+    es = 2 if dtype == "bfloat16" else 4
+    nbytes = es * hd * b * s * (4 * h + 4 * kv)
+    flops = 10 * hd * attn_pairs(s, window) * b * h
+    return nbytes, flops, PEAK_FLOPS[dtype]
+
+
+def wkv_bwd_bound(b, s, h, hd, dtype):
+    """r, k, v (dtype), w, dy (f32) read and dr, dk, dv (dtype), dw (f32)
+    written, once, with u, du, the state, ds and dstate; a step and head
+    rebuilds S (2 hd² flops) and takes dS, dr, dk, dv and dw (2 hd²
+    each)."""
+    es = 2 if dtype == "bfloat16" else 4
+    n = b * s * h * hd
+    nbytes = (6 * es + 3 * 4) * n + 2 * es * h * hd + 3 * 4 * b * h * hd * hd
+    flops = 12 * hd * hd * b * s * h
+    return nbytes, flops, PEAK_FLOPS["float32"]
+
+
+def stream_ms(torch, fn, arg_sets):
+    """Time on the card of one call that a CUDA graph cannot capture
+    (autograd runs a backward on the stream of its forward): back-to-back
+    calls cycling through ``arg_sets`` between two CUDA events, the
+    median over ``TIMED_CALLS`` such runs, per call."""
+    calls = max(len(arg_sets), 4)
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+
+    def run():
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
+    return statistics.median(event_ms(torch, run) / calls
+                             for _ in range(TIMED_CALLS))
+
+
+def library_attention_bwd_ms(torch, sets):
+    """The backward of ``scaled_dot_product_attention`` through autograd
+    on the same inputs: ``torch.autograd.grad`` over a retained graph,
+    timed by ``stream_ms``."""
+    import torch.nn.functional as F
+    prepared = []
+    for q, k, v, _, do in sets:
+        qq, kk, vv = (t.detach().transpose(1, 2).requires_grad_(True)
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                             enable_gqa=True)
+        prepared.append((out, qq, kk, vv, do.transpose(1, 2)))
+
+    def bwd(out, qq, kk, vv, g):
+        return torch.autograd.grad(out, (qq, kk, vv), g, retain_graph=True)
+    return stream_ms(torch, bwd, prepared)
+
+
+def bwd_against_plain(torch, kernel, shape, dtype, gen, tol):
+    """The backward kernel against its plain version on one input set:
+    each gradient within tol x (max |grad| + |grad|), one launch a call,
+    two calls bit-equal.  Returns the worst |err| / max |grad| and the
+    worst |err|."""
+    from repro_torch.kernels import LAUNCHES, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv_wkv as wkv
+    name = f"{kernel}_bwd"
+    fn, plain = ((fa.flash_attention_bwd, ref.flash_attention_bwd_ref)
+                 if kernel == "flash_attention" else
+                 (wkv.rwkv_wkv_bwd, ref.rwkv_wkv_bwd_ref))
+    args = grad_inputs(torch, kernel, shape, dtype, gen)
+    before = LAUNCHES[name]
+    got = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    if LAUNCHES[name] != before + 2:
+        raise AssertionError(f"{name} {shape}: {LAUNCHES[name] - before} "
+                             f"launches in two calls")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name} {shape} {dtype}: two calls differ")
+    want = plain(*args)
+    worst = worst_abs = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = max(w.float().abs().max().item(), 1e-30)
+        e = (g.float() - w.float()).abs().max().item()
+        if g.dtype != w.dtype or not torch.allclose(
+                g.float(), w.float(), rtol=tol, atol=tol * scale):
+            raise AssertionError(f"{name} {shape} {dtype} gradient {i}: "
+                                 f"max |err| {e} x max |grad| {scale}")
+        worst, worst_abs = max(worst, e / scale), max(worst_abs, e)
+    return worst, worst_abs
+
+
 def phase_train_grad(torch, report):
-    """Gradients through K3 and K4 at the serve paths' prefill shapes:
-    a scalar loss (half the sum of squared outputs, the wkv state's
-    too) through ``ops.flash_attention`` / ``ops.rwkv_wkv`` on the card
-    (the kernel forward, the plain twin's vector-Jacobian product
-    backward) against the same loss through the twins: each element
-    within tol x (max |grad| + its own |grad|).  K3 in bf16 at its forward
-    tolerance (2e-2); K4 in f32 at its forward tolerance (2e-4) and in
-    bf16, the serve path's type, at ``BF16_STEP``: a gradient has its
-    input's type, so K4's bf16 gradients are the twin's f32 gradients
-    (which differ from the kernel run's by f32 rounding of y) rounded
-    to bf16, where two such values may land one step apart."""
+    """The backward kernels of K3 and K4 against their plain versions at
+    the prefill and train shapes, in f32 and bf16, bit-reproducible; their
+    times at the train shape in f32 (the rows' numbers) and at the
+    prefill shape in bf16; then gradients through ops.flash_attention /
+    ops.rwkv_wkv on the card against autograd through the plain forwards.
+    A gradient has its input's type, so K4's bf16 gradients are f32 sums
+    rounded to bf16, where two may land one step apart (``BF16_STEP``)."""
     from repro_torch.kernels import LAUNCHES, ops, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv_wkv as wkv
     gen = torch.Generator(device="cuda").manual_seed(4)
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
     out = {}
-    cases = (
-        ("flash_attention", ops.flash_attention, ref.flash_attention_ref,
-         lambda: attn_inputs(torch, 4, 1024, 24, 8, 128, bf16, gen), 2e-2),
-        ("rwkv_wkv", ops.rwkv_wkv, ref.rwkv_wkv_ref,
-         lambda: wkv_inputs(torch, 4, 1024, 40, 64, torch.float32, gen,
-                            True), 2e-4),
-        ("rwkv_wkv", ops.rwkv_wkv, ref.rwkv_wkv_ref,
-         lambda: wkv_inputs(torch, 4, 1024, 40, 64, bf16, gen, True),
-         BF16_STEP))
+    for kernel, shapes in GRAD_SHAPES.items():
+        name = f"{kernel}_bwd"
+        row = out[name] = {"checks": {}}
+        for label, shape in shapes.items():
+            for dtype in (f32, bf16):
+                tol = 2e-4 if dtype == f32 else (
+                    2e-2 if kernel == "flash_attention" else BF16_STEP)
+                err, err_abs = bwd_against_plain(torch, kernel, shape, dtype,
+                                                 gen, tol)
+                dt = str(dtype).split(".")[-1]
+                row["checks"][f"{label} {dt}"] = {
+                    "shape": list(shape), "max_rel_err": err,
+                    "max_abs_err": err_abs, "tol": tol}
+                log(f"{name} at {shape} {dt}: equals its plain version "
+                    f"within {err:.3e} x max |grad| (tol {tol}); two "
+                    f"calls bit-equal; one launch a call")
+                torch.cuda.empty_cache()
+        row["max_abs_err"] = max(c["max_abs_err"]
+                                 for c in row["checks"].values())
+        row["max_rel_err"] = max(c["max_rel_err"]
+                                 for c in row["checks"].values())
+        fn, plain = ((fa.flash_attention_bwd, ref.flash_attention_bwd_ref)
+                     if kernel == "flash_attention" else
+                     (wkv.rwkv_wkv_bwd, ref.rwkv_wkv_bwd_ref))
+        for label, dtype in (("", f32), ("_prefill", bf16)):
+            shape = shapes["train" if label == "" else "prefill"]
+            dt = str(dtype).split(".")[-1]
+            nb, fl, peak = (attn_bwd_bound(*shape, 0, dt)
+                            if kernel == "flash_attention"
+                            else wkv_bwd_bound(*shape, dt))
+            sets = [grad_inputs(torch, kernel, shape, dtype, gen)
+                    for _ in range(max(2, -(-2 * L2_BYTES // nb)))]
+            b_row = bound_row(nb, fl, peak)
+            row.update({f"ms{label}": device_ms(torch, fn, sets),
+                        f"plain_ms{label}": device_ms(torch, plain,
+                                                      sets[:2]),
+                        f"shape{label}": list(shape), f"dtype{label}": dt,
+                        **{f"{k}{label}": v for k, v in b_row.items()}})
+            row[f"library_ms{label}"] = (
+                library_attention_bwd_ms(torch, sets)
+                if kernel == "flash_attention" else None)
+            log(f"{name} at {shape} {dt}: on the card {row[f'ms{label}']:.5f}"
+                f" ms, plain {row[f'plain_ms{label}']:.5f} ms, library "
+                f"{row[f'library_ms{label}']} ms over {len(sets)} input "
+                f"sets; bound {b_row['bound_ms']:.5f} ms by "
+                f"{b_row['bound_by']} ({nb} B, {fl} flop)")
+            del sets
+            torch.cuda.empty_cache()
+        report[name] = row
+
+    # the dispatch on the card: the forward kernel and the backward
+    # kernel, one launch each, against autograd through the plain forwards
+    cases = (("flash_attention", ops.flash_attention, ref.flash_attention_ref,
+              lambda: attn_inputs(torch, *GRAD_SHAPES["flash_attention"][
+                  "train"], f32, gen), 2e-4),
+             ("rwkv_wkv", ops.rwkv_wkv, ref.rwkv_wkv_ref,
+              lambda: wkv_inputs(torch, *GRAD_SHAPES["rwkv_wkv"]["train"],
+                                 f32, gen, True), 2e-4))
     for name, fn, twin, make, tol in cases:
         args = [a.detach().requires_grad_(True) for a in make()]
 
@@ -2101,11 +2280,12 @@ def phase_train_grad(torch, report):
             o = o if isinstance(o, tuple) else (o,)
             sum(0.5 * (t.float() ** 2).sum() for t in o).backward()
             return [a.grad.clone() for a in args]
-        before = LAUNCHES[name]
-        (got, secs) = sync_time(torch, lambda: grads(fn))
-        if LAUNCHES[name] != before + 1:
-            raise AssertionError(f"train_grad {name}: launches "
-                                 f"{LAUNCHES[name] - before}")
+        before = dict(LAUNCHES)
+        got, secs = sync_time(torch, lambda: grads(fn))
+        moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                 if LAUNCHES[k] != before[k]}
+        if moved != {name: 1, f"{name}_bwd": 1}:
+            raise AssertionError(f"train_grad ops.{name}: launches {moved}")
         want, twin_s = sync_time(torch, lambda: grads(twin))
         worst = 0.0
         for i, (g, w) in enumerate(zip(got, want)):
@@ -2113,22 +2293,21 @@ def phase_train_grad(torch, report):
             e = (g.float() - w.float()).abs().max().item()
             if not torch.allclose(g.float(), w.float(), rtol=tol,
                                   atol=tol * scale):
-                raise AssertionError(f"train_grad {name} input {i}: max "
-                                     f"|err| {e} x max |grad| {scale}")
+                raise AssertionError(f"train_grad ops.{name} input {i}: "
+                                     f"max |err| {e} x max |grad| {scale}")
             worst = max(worst, e / scale)
-        dtype = str(args[0].dtype).split(".")[-1]
-        out[f"{name}_{dtype}"] = row = {
-            "shape": list(args[0].shape), "max_rel_err": worst,
-            "dtype": dtype, "tol": tol, "seconds": secs,
-            "twin_seconds": twin_s}
-        log(f"train_grad {name} at {tuple(args[0].shape)} "
-            f"{row['dtype']}: gradients of "
-            f"{len(args)} inputs equal the twin's within {worst:.3e} x max "
-            f"|grad| (tol {tol}); forward + backward {secs:.2f} s "
-            f"(twin {twin_s:.2f} s)")
+        out[f"ops_{name}"] = {"shape": list(args[0].shape),
+                              "max_rel_err": worst, "tol": tol,
+                              "seconds": secs, "autograd_seconds": twin_s}
+        log(f"train_grad ops.{name} at {tuple(args[0].shape)} f32: "
+            f"gradients of {len(args)} inputs (forward and backward "
+            f"kernels) equal autograd through the plain forward within "
+            f"{worst:.3e} x max |grad|; forward + backward {secs:.3f} s "
+            f"(through the plain forward {twin_s:.3f} s)")
         del args, got, want
         torch.cuda.empty_cache()
-    report["train_grad"] = out
+    report["train_grad"] = {k: v for k, v in out.items()
+                            if k.startswith("ops_")}
 
 
 def sass_counts(build):
@@ -2189,7 +2368,9 @@ def phase_build(report):
     logs = build.build_all()
     secs = time.time() - t0
     report["build"] = {"seconds": secs, "rwkv_wkv_ptxas": wkv_instances(
-        ptxas_usage(logs.get("rwkv_wkv", "")))}
+        ptxas_usage(logs.get("rwkv_wkv", ""))), "bwd_ptxas": {
+            name: ptxas_usage(logs.get(name, ""))
+            for name in ("flash_attention_bwd", "rwkv_wkv_bwd")}}
     log(f"build: nvcc on {len(logs)} sources in {secs:.2f} s "
         f"(nvcc {build.nvcc()})")
     for name, text in logs.items():
@@ -2550,18 +2731,23 @@ def phase_serve(torch, report, launches, arch, expect):
 
 @contextlib.contextmanager
 def plain_twins():
-    """K3 and K4 through their plain twins on the card (the wrappers'
-    module functions swapped, and put back after)."""
+    """K3 and K4, forward and backward, through their plain versions on
+    the card (the wrappers' module functions swapped, and put back
+    after)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv_wkv as wkv
-    saved = fa.flash_attention, wkv.rwkv_wkv
-    fa.flash_attention, wkv.rwkv_wkv = (ref.flash_attention_ref,
-                                        ref.rwkv_wkv_ref)
+    saved = (fa.flash_attention, fa.flash_attention_bwd, wkv.rwkv_wkv,
+             wkv.rwkv_wkv_bwd)
+    (fa.flash_attention, fa.flash_attention_bwd, wkv.rwkv_wkv,
+     wkv.rwkv_wkv_bwd) = (ref.flash_attention_ref,
+                          ref.flash_attention_bwd_ref, ref.rwkv_wkv_ref,
+                          ref.rwkv_wkv_bwd_ref)
     try:
         yield
     finally:
-        fa.flash_attention, wkv.rwkv_wkv = saved
+        (fa.flash_attention, fa.flash_attention_bwd, wkv.rwkv_wkv,
+         wkv.rwkv_wkv_bwd) = saved
 
 
 def serve_gaps(torch, cfg, seed, tol=None):
@@ -2951,9 +3137,9 @@ def phase_train(torch, report, launches, arch, kernel, seq):
                                           loss_fn, TRAIN_TOL[kernel]))
     peak = torch.cuda.max_memory_allocated()
     want = TRAIN["workers"] * TRAIN["layers"] * (1 + TRAIN["steps"])
-    if counts != {**ZERO, kernel: want}:
+    if counts != {**ZERO, kernel: want, f"{kernel}_bwd": want}:
         raise AssertionError(f"train {arch}: launches {counts}, expected "
-                             f"{kernel}: {want}")
+                             f"{kernel} and {kernel}_bwd: {want}")
     del params
     split = step_split(torch, p, state, batches[1], rcfg, loss_fn)
     del p, state
@@ -2974,6 +3160,10 @@ def phase_train(torch, report, launches, arch, kernel, seq):
            "precond_max_rel_err": gaps["precond"], "phase_s": total_s,
            "kernel": k_row,
            "kernel_share_of_step": per_step * k_row["ms"] / 1e3 / warm}
+    bwd_ms = report.get(f"{kernel}_bwd", {}).get("ms")   # train_grad's
+    if bwd_ms is not None:
+        row["kernel_bwd_ms"] = bwd_ms
+        row["kernel_bwd_share_of_step"] = per_step * bwd_ms / 1e3 / warm
     report[f"train_{'rwkv' if kernel == 'rwkv_wkv' else 'dense'}"] = row
     report.setdefault(kernel, {})[f"train_{arch}_f32"] = k_row
     log(f"train {arch} (2 layers, {n / 1e9:.3f} B params, f32, N = 4, "
@@ -2989,7 +3179,9 @@ def phase_train(torch, report, launches, arch, kernel, seq):
         f"{k_row['ms']:.5f} ms on the card (plain {k_row['plain_ms']:.5f}, "
         f"library {k_row.get('library_ms')}), bound {k_row['bound_ms']:.5f}"
         f" ms by {k_row['bound_by']}; {per_step} a step = "
-        f"{row['kernel_share_of_step']:.2%} of the warm step")
+        f"{row['kernel_share_of_step']:.2%} of the warm step; its backward "
+        f"kernel {bwd_ms} ms (train_grad), {per_step} a step = "
+        f"{row.get('kernel_bwd_share_of_step', 0):.2%}")
     del batches
     torch.cuda.empty_cache()
 
@@ -3022,7 +3214,9 @@ def phase_train_adamw(torch, report, launches):
     (p, losses, step_s), _, counts = counted(
         torch, launches, lambda: adamw_run(torch, params, batches, loss_fn))
     peak = torch.cuda.max_memory_allocated()
-    if counts != {**ZERO, "flash_attention": TRAIN["layers"] * 3}:
+    want = TRAIN["layers"] * 3
+    if counts != {**ZERO, "flash_attention": want,
+                  "flash_attention_bwd": want}:
         raise AssertionError(f"train_adamw: launches {counts}")
     got = to_cpu(p)
     del p
@@ -3300,9 +3494,11 @@ def train_sharded_world_of_one(torch, report, launches):
             raise AssertionError(f"train_sharded (a): the log breaks the "
                                  f"train contract: {rep['violations'][:3]}")
         want = TRAIN["workers"] * TRAIN["layers"] * (1 + TRAIN_SHARDED_STEPS)
-        if counts != {**ZERO, "flash_attention": want}:
+        if counts != {**ZERO, "flash_attention": want,
+                      "flash_attention_bwd": want}:
             raise AssertionError(f"train_sharded (a): launches {counts}, "
-                                 f"expected flash_attention: {want}")
+                                 f"expected flash_attention and its "
+                                 f"backward: {want}")
         del p, state
         torch.cuda.empty_cache()
     finally:
@@ -3470,11 +3666,16 @@ def train_sharded_two_ranks(torch, report, launches):
     with contextlib.redirect_stdout(buf):
         cli.run(["--smoke", "--steps", "2"])
     one = json.loads(buf.getvalue().strip().splitlines()[-1])
+    gc.collect()            # nothing of this process's runs stays on the card
     torch.cuda.empty_cache()
     out_dir = os.path.dirname(sharded_store("gloo_train"))
     for r in (0, 1):
         if os.path.exists(os.path.join(out_dir, f"train_rank{r}.pt")):
             os.remove(os.path.join(out_dir, f"train_rank{r}.pt"))
+    log(f"train_sharded (b): this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved on the card "
+        f"before the ranks start")
     ctx = mp.start_processes(_train_sharded_rank, args=(
         os.path.join(out_dir, "gloo_train"), out_dir), nprocs=2,
         join=False, start_method="spawn")
@@ -3507,10 +3708,12 @@ def train_sharded_two_ranks(torch, report, launches):
             n_local = TRAIN["workers"] // (shape[0] if dims[0] == "data"
                                            else 1)
             want = n_local * TRAIN_SHARDED_CUT["layers"] * (1 + steps)
-            if {**ZERO, **got} != {**ZERO, "flash_attention": want}:
+            if {**ZERO, **got} != {**ZERO, "flash_attention": want,
+                                   "flash_attention_bwd": want}:
                 raise AssertionError(f"train_sharded (b) {label} rank {i}: "
                                      f"launches {got}, expected "
-                                     f"flash_attention: {want}")
+                                     f"flash_attention and its backward: "
+                                     f"{want}")
             for name, v in got.items():
                 launches[name] += v
         share = [r[label]["persistent_bytes"] / a["unsharded_bytes"]

@@ -4,7 +4,8 @@ turns.
 
     python3 kernel_ab.py --kernel NAME [--seeds B] TREE [TREE ...]
 
-NAME is one of flash_attention, rwkv_wkv, region_aggregate, ranl_update.
+NAME is one of flash_attention, rwkv_wkv, region_aggregate, ranl_update,
+flash_attention_bwd, rwkv_wkv_bwd.
 ``--seeds B`` times the aggregation kernels in their seed-batched form,
 (B, N, D) at each shape, as the batch engine launches them (a tree whose
 kernel has no seed axis fails its check).
@@ -26,7 +27,13 @@ the aggregation kernels also get one call with the host's launch
 - rwkv_wkv, bf16 r/k/v/u (B, S, H, hd): rwkv6-3b's prefill
   (4, 1024, 40, 64) and decode (4, 1, 40, 64), few heads (1, 1024, 4, 64);
 - region_aggregate (N, D): the dense path's (32, 8192) and (32, 2²²);
-- ranl_update (N, D): the diag path's (32, 4096) and (32, 2²²).
+- ranl_update (N, D): the diag path's (32, 4096) and (32, 2²²);
+- flash_attention_bwd, rwkv_wkv_bwd: the backward kernels at the train
+  shapes, phi4-mini's (2, 512, 24, 8, 128) and rwkv6-3b's (2, 512, 40,
+  64), in f32 (the train path's type) and bf16, beside the plain backward
+  and, for flash_attention_bwd, the backward of
+  ``scaled_dot_product_attention`` through autograd (``chip_smoke.py``'s
+  train_grad timings).
 
 Prints the card's name and power limit, then one line per (run, shape).
 Needs a CUDA card.
@@ -46,6 +53,10 @@ SHAPES = {
     "rwkv_wkv": ((4, 1024, 40, 64), (4, 1, 40, 64), (1, 1024, 4, 64)),
     "region_aggregate": ((32, 8192), (32, 1 << 22)),
     "ranl_update": ((32, 4096), (32, 1 << 22)),
+    "flash_attention_bwd": (((2, 512, 24, 8, 128), "float32"),
+                            ((2, 512, 24, 8, 128), "bfloat16")),
+    "rwkv_wkv_bwd": (((2, 512, 40, 64), "float32"),
+                     ((2, 512, 40, 64), "bfloat16")),
 }
 RUN_TIMEOUT_S = 300
 
@@ -125,6 +136,41 @@ def time_aggregate(C, torch, tree, gen, name, seeds=None):
         torch.cuda.empty_cache()
 
 
+def time_backward(C, torch, tree, gen, name):
+    """A backward kernel at each shape: checked against its plain version
+    (``chip_smoke.bwd_against_plain``: the tolerances of its train_grad
+    phase, one launch a call, two calls bit-equal), then timed beside the
+    plain backward and (K3) the library's backward."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv_wkv as wkv
+    kernel = name[:-len("_bwd")]
+    fn, plain = ((fa.flash_attention_bwd, ref.flash_attention_bwd_ref)
+                 if kernel == "flash_attention" else
+                 (wkv.rwkv_wkv_bwd, ref.rwkv_wkv_bwd_ref))
+    for shape, dt in SHAPES[name]:
+        dtype = getattr(torch, dt)
+        tol = 2e-4 if dt == "float32" else (
+            2e-2 if kernel == "flash_attention" else C.BF16_STEP)
+        C.bwd_against_plain(torch, kernel, shape, dtype, gen, tol)
+        nb, fl, peak = (C.attn_bwd_bound(*shape, 0, dt)
+                        if kernel == "flash_attention"
+                        else C.wkv_bwd_bound(*shape, dt))
+        sets = _sets(C, nb, lambda: C.grad_inputs(torch, kernel, shape,
+                                                  dtype, gen))
+        ms = C.device_ms(torch, fn, sets)
+        plain_ms = C.device_ms(torch, plain, sets[:2])
+        lib = (f"; scaled_dot_product_attention backward "
+               f"{C.library_attention_bwd_ms(torch, sets):.5f} ms"
+               if kernel == "flash_attention" else "")
+        b = C.bound_row(nb, fl, peak)
+        print(f"{tree} {shape} {dt}: {ms:.5f} ms (bound {b['bound_ms']:.5f}"
+              f" ms by {b['bound_by']}); plain {plain_ms:.5f} ms{lib}",
+              flush=True)
+        del sets
+        torch.cuda.empty_cache()
+
+
 def run_one(kernel: str, tree: str, seeds=None):
     """Build, check and time the kernel of one tree (in this process)."""
     import chip_smoke as C            # timing helpers of this checkout
@@ -137,6 +183,8 @@ def run_one(kernel: str, tree: str, seeds=None):
         time_attention(C, torch, tree, gen)
     elif kernel == "rwkv_wkv":
         time_wkv(C, torch, tree, gen)
+    elif kernel.endswith("_bwd"):
+        time_backward(C, torch, tree, gen, kernel)
     else:
         time_aggregate(C, torch, tree, gen, kernel, seeds)
 

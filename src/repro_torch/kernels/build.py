@@ -47,7 +47,8 @@ def build_dir(module: Path = Path(__file__)) -> Path:
 
 
 BUILD_DIR = build_dir()
-SOURCES = ("flash_attention", "rwkv_wkv", "chol_update")
+SOURCES = ("flash_attention", "flash_attention_bwd", "rwkv_wkv",
+           "rwkv_wkv_bwd", "chol_update")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600.0

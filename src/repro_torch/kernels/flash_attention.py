@@ -1,6 +1,9 @@
-"""Wrapper of the hand-written CUDA flash-attention kernel
+"""Wrappers of the hand-written CUDA flash-attention kernel
 (``csrc/flash_attention.cu``), which replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py::flash_attention``.
+``repro/kernels/flash_attention.py::flash_attention``, and of its backward
+(``csrc/flash_attention_bwd.cu``, ``flash_attention_bwd``), which replaces
+XLA's autodiff of the reference's ``repro/models/attention.py::
+blocked_attention``.
 
 Causal GQA self-attention with an optional sliding window: q (B, S, H,
 hd), k and v (B, S, KV, hd), in f32 or bf16, hd in {32, 64, 128}; the
@@ -16,8 +19,12 @@ one to the other:
 - ``"simt"``: f32 at every hd, and bf16 at hd 32.  f32 FMAs on the CUDA
   cores, so f32 inputs get full-f32 products.
 
-The library is built with ``nvcc`` at first use (``build.py``); this module
-imports on hosts without a card.
+The backward is one body for both types and every hd, f32 FMAs on the
+CUDA cores (three launches: L and D, then dK/dV, then dQ); it takes what
+the forward takes and refuses what it refuses.
+
+The libraries are built with ``nvcc`` at first use (``build.py``); this
+module imports on hosts without a card.
 """
 
 from __future__ import annotations
@@ -63,6 +70,16 @@ def _entry(body: str):
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                        + [ctypes.c_float] + [ctypes.c_longlong] * 9
                        + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_entry():
+    fn = build.library("flash_attention_bwd").flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] + [ctypes.c_longlong] * 15
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -152,3 +169,41 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     build.check_launch(code, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
+                        window: int = 0):
+    """Launch the backward kernels on the current stream without
+    synchronising: the gradients of ``flash_attention`` at (q, k, v),
+    given its output ``o`` and the output's gradient ``do`` (B, S, H, hd)
+    in q's type, read in their strides (copied where the head dim is not
+    contiguous).  Returns (dq (B, S, H, hd), dk, dv (B, S, KV, hd)) in q's
+    type; matches ``ref.flash_attention_bwd_ref``."""
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != tuple(q.shape):
+            raise ValueError(f"{name} must have q's shape {tuple(q.shape)},"
+                             f" got {tuple(t.shape)}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    B, S, H, KV, hd = _check(q, k, v)
+    route(q.dtype, hd)
+    o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (o, do))
+    dev = q.device
+    dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=dev)
+    dk, dv = (torch.empty((B, S, KV, hd), dtype=q.dtype, device=dev)
+              for _ in range(2))
+    lse, delta = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    with torch.cuda.device(dev):
+        code = _bwd_entry()(
+            *(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv, lse,
+                                     delta)),
+            B, S, H, KV, hd, _DTYPES[q.dtype], int(bool(causal)),
+            int(window), 1.0 / math.sqrt(hd),
+            *(t.stride(i) for t in (q, k, v, o, do) for i in (0, 1, 2)),
+            build.stream_handle(dev))
+    build.check_launch(code, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

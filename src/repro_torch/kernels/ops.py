@@ -2,10 +2,13 @@
 the wrapper raises), a CPU tensor takes the plain version.  Nothing falls
 back from one to the other.
 
-No kernel has a backward of its own, as no Pallas kernel had one.  Where
-a gradient is wanted through flash_attention or rwkv_wkv, the kernel
-runs forward and the backward is the plain twin's vector-Jacobian
-product at the same inputs (``with_twin_grad``)."""
+flash_attention and rwkv_wkv carry gradients.  When grad mode is on and
+an input requires grad, the call goes through a ``torch.autograd.Function``
+(``_FlashAttention``, ``_RwkvWkv``): its forward is the kernel (or, on the
+CPU, the plain forward, recording no graph) and its backward the
+hand-written backward kernel (or the plain backward), from the saved
+inputs (and K3's output).  Otherwise the forward runs with no autograd
+bookkeeping."""
 
 from __future__ import annotations
 
@@ -16,43 +19,6 @@ from . import flash_attention as _fa
 from . import ref
 from . import region_aggregate as _k
 from . import rwkv_wkv as _wkv
-
-
-class _TwinGrad(torch.autograd.Function):
-    """Forward: ``fn(*inputs, **kwargs)``; backward: the VJP of
-    ``twin(*inputs, **kwargs)``, recomputed from the saved inputs."""
-
-    @staticmethod
-    def forward(ctx, fn, twin, kwargs, *inputs):
-        ctx.twin, ctx.kwargs = twin, kwargs
-        ctx.save_for_backward(*inputs)
-        return fn(*inputs, **kwargs)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        need = ctx.needs_input_grad[3:]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, need)]
-            outs = ctx.twin(*leaves, **ctx.kwargs)
-            outs = outs if isinstance(outs, tuple) else (outs,)
-            pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
-            wrt = [t for t in leaves if t.requires_grad]
-            got = iter(torch.autograd.grad(
-                [o for o, _ in pairs], wrt, [g for _, g in pairs],
-                allow_unused=True))
-        return (None, None, None,
-                *(next(got) if n else None for n in need))
-
-
-def with_twin_grad(fn, twin, *inputs, **kwargs):
-    """``fn(*inputs, **kwargs)``, differentiable as ``twin`` is: when
-    grad mode is on and an input requires grad, the backward recomputes
-    ``twin`` at the inputs and returns its vector-Jacobian product;
-    otherwise ``fn`` runs with no autograd bookkeeping."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        return _TwinGrad.apply(fn, twin, kwargs, *inputs)
-    return fn(*inputs, **kwargs)
 
 
 def _on_cpu(t) -> bool:
@@ -77,21 +43,69 @@ def ranl_update(params, hdiag, grads, masks, memory, *, mu: float,
     return _k.ranl_update(params, hdiag, grads, masks, memory, mu=mu, lr=lr)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd) in q.dtype."""
+def _wants_grad(*inputs) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+
+
+def _attention_fwd(q, k, v, causal, window):
     if _on_cpu(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    return with_twin_grad(_fa.flash_attention, ref.flash_attention_ref,
-                          q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _attention_fwd(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        bwd = (ref.flash_attention_bwd_ref if _on_cpu(q)
+               else _fa.flash_attention_bwd)
+        grads = bwd(q, k, v, out, do, causal=ctx.causal, window=ctx.window)
+        return (*(g if n else None
+                  for g, n in zip(grads, ctx.needs_input_grad)), None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd) in q.dtype."""
+    if _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _attention_fwd(q, k, v, causal, window)
+
+
+def _wkv_fwd(*inputs):
+    if _on_cpu(inputs[0]):
+        return ref.rwkv_wkv_ref(*inputs)
+    return _wkv.rwkv_wkv(*inputs)
+
+
+class _RwkvWkv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return _wkv_fwd(r, k, v, w, u, state)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        inputs = ctx.saved_tensors
+        bwd = (ref.rwkv_wkv_bwd_ref if _on_cpu(inputs[0])
+               else _wkv.rwkv_wkv_bwd)
+        grads = bwd(*inputs, dy, ds)
+        return tuple(g if n else None
+                     for g, n in zip(grads, ctx.needs_input_grad))
 
 
 def rwkv_wkv(r, k, v, w, u, state):
     """r, k, v, w: (B, S, H, hd); u: (H, hd); state: (B, H, hd, hd) f32
     -> (y (B, S, H, hd) f32, final state)."""
-    if _on_cpu(r):
-        return ref.rwkv_wkv_ref(r, k, v, w, u, state)
-    return with_twin_grad(_wkv.rwkv_wkv, ref.rwkv_wkv_ref, r, k, v, w, u,
-                          state)
+    if _wants_grad(r, k, v, w, u, state):
+        return _RwkvWkv.apply(r, k, v, w, u, state)
+    return _wkv_fwd(r, k, v, w, u, state)
 
 
 def chol_update(L, V, alpha):

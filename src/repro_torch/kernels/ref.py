@@ -83,6 +83,108 @@ def rwkv_wkv_ref(r, k, v, w, u, state):
     return torch.stack(ys, dim=1), S
 
 
+def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
+                            window: int = 0):
+    """The gradients of ``flash_attention_ref`` at (q, k, v), given its
+    output ``o`` and the output's gradient ``do``: the plain version of
+    ``flash_attention_bwd``, written out on full score matrices with the
+    kv heads kept at KV width (query head h = c·G + g of kv head c).
+
+        P = exp(s − L),  L = logsumexp(s) over the row's unmasked keys
+        dV = Pᵀ dO,  dP = dO Vᵀ,  dS = P ⊙ (dP − D),  D = rowsum(dO ⊙ O)
+        dQ = scale · dS K,  dK = scale · dSᵀ Q
+
+    with dV and dK summed over the G query heads of each kv head.  Shapes
+    and masks as ``flash_attention_ref``; arithmetic in f32.  Returns (dq,
+    dk, dv), each in its input's type."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qf = q.float().reshape(B, Sq, KV, G, hd)
+    kf, vf = k.float(), v.float()
+    of = o.float().reshape(B, Sq, KV, G, hd)
+    dof = do.float().reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqcgd,bkcd->bcgqk", qf, kf) * scale
+    qpos = torch.arange(Skv - Sq, Skv, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    valid = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= kpos <= qpos
+    if window:
+        valid &= kpos > qpos - window
+    s = torch.where(valid, s, -1e30)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - lse), 0.0)
+    d = torch.einsum("bqcgd,bqcgd->bcgq", dof, of)[..., None]
+    dv = torch.einsum("bcgqk,bqcgd->bkcd", p, dof)
+    dp = torch.einsum("bqcgd,bkcd->bcgqk", dof, vf)
+    ds = p * (dp - d)
+    dq = torch.einsum("bcgqk,bkcd->bqcgd", ds, kf) * scale
+    dk = torch.einsum("bcgqk,bqcgd->bkcd", ds, qf) * scale
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def rwkv_wkv_bwd_ref(r, k, v, w, u, state, dy, ds, chunk: int = 64):
+    """The gradients of ``rwkv_wkv_ref`` at its inputs, given the
+    gradients ``dy`` (B, S, H, hd) of y and ``ds`` (B, H, hd, hd) of the
+    final state: the plain version of ``rwkv_wkv_bwd``, the reverse loop
+    written out.  With S_t the state before step t and dS_{t+1} the
+    gradient of the state after it (dS_T = ds):
+
+        dS_t  = diag(w_t) dS_{t+1} + r_t dy_tᵀ
+        dr_t  = (S_t + u ⊙ k_t v_tᵀ) dy_t
+        dk_t  = u ⊙ r_t (v_t · dy_t) + dS_{t+1} v_t
+        dv_t  = (r_t · (u ⊙ k_t)) dy_t + dS_{t+1}ᵀ k_t
+        dw_t  = rowsum(dS_{t+1} ⊙ S_t)
+        du    = Σ_{b,t} r_t ⊙ k_t (v_t · dy_t),   dstate = dS_0
+
+    S_t comes from checkpoints: the forward keeps S at every ``chunk``-th
+    step, and each chunk's states are rebuilt from its checkpoint in the
+    reverse pass (the reference's checkpointed scan), so the extra memory
+    is S/chunk states and one chunk's, never one state a step.  Arithmetic
+    in f32.  Returns (dr, dk, dv, dw, du, dstate), each in its input's
+    type."""
+    rf, kf, vf, wf, dyf = (t.float() for t in (r, k, v, w, dy))
+    uf = u.float()
+    T = rf.shape[1]
+
+    def step(S, t):
+        return (wf[:, t, :, :, None] * S
+                + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+
+    ckpts, S = [], state.float()
+    for t in range(T):
+        if t % chunk == 0:
+            ckpts.append(S)
+        S = step(S, t)
+    dS = ds.float()
+    grads = [torch.empty_like(rf) for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros_like(dS[..., 0])                    # (B, H, hd)
+    for c in reversed(range(len(ckpts))):
+        t0, t1 = c * chunk, min(T, (c + 1) * chunk)
+        states = [ckpts[c]]
+        for t in range(t0, t1 - 1):
+            states.append(step(states[-1], t))
+        for t in reversed(range(t0, t1)):
+            St = states.pop()
+            rt, kt, vt, dyt = rf[:, t], kf[:, t], vf[:, t], dyf[:, t]
+            vd = (vt * dyt).sum(-1, keepdim=True)        # (B, H, 1)
+            dr[:, t] = (torch.einsum("bhij,bhj->bhi", St, dyt)
+                        + uf * kt * vd)
+            dk[:, t] = (torch.einsum("bhij,bhj->bhi", dS, vt)
+                        + uf * rt * vd)
+            dv[:, t] = (torch.einsum("bhij,bhi->bhj", dS, kt)
+                        + (rt * uf * kt).sum(-1, keepdim=True) * dyt)
+            dw[:, t] = (dS * St).sum(-1)
+            du += rt * kt * vd
+            dS = wf[:, t, :, :, None] * dS + rt[..., None] * dyt[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.sum(0).to(u.dtype), dS.to(state.dtype))
+
+
 def chol_rank1_update(L, u, alpha):
     """Lower Cholesky factor of ``L Lᵀ + alpha u uᵀ`` (alpha clamped at 0),
     O(d²): the rotation sweep over columns, one column a step, as the

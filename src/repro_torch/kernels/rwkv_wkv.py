@@ -1,6 +1,9 @@
-"""Wrapper of the hand-written CUDA RWKV-6 wkv kernel
+"""Wrappers of the hand-written CUDA RWKV-6 wkv kernel
 (``csrc/rwkv_wkv.cu``), which replaces the Pallas TPU kernel
-``repro/kernels/rwkv_wkv.py::rwkv_wkv``.
+``repro/kernels/rwkv_wkv.py::rwkv_wkv``, and of its backward
+(``csrc/rwkv_wkv_bwd.cu``, ``rwkv_wkv_bwd``), which replaces XLA's
+autodiff of the reference's checkpointed scan
+``repro/models/rwkv.py::_wkv_scan``.
 
 r, k, v, w: (B, S, H, hd), read in their strides with the head dim
 contiguous; r, k, v and u (H, hd) in f32 or bf16 (one type), w f32;
@@ -39,6 +42,7 @@ TILES = ((8, 2), (4, 2))
 WARPS_PER_BLOCK = (4, 2, 1)
 WARPS_PER_SM = 8        # resident warps per SM the geometry aims for
 BALANCE = 1.25          # busiest SM's warps against the average, at most
+CHUNK = 64              # the backward's steps between checkpoints
 
 
 class Geometry(NamedTuple):
@@ -182,3 +186,57 @@ def rwkv_wkv(r, k, v, w, u, state):
     build.check_launch(code, "rwkv_wkv")
     LAUNCHES["rwkv_wkv"] += 1
     return y, s_out
+
+
+@functools.cache
+def _bwd_entry():
+    fn = build.library("rwkv_wkv_bwd").rwkv_wkv_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _packed(t):
+    """``t`` contiguous at a 16-byte-aligned address (copied if not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % COPY_ALIGN == 0 else t.clone()
+
+
+def rwkv_wkv_bwd(r, k, v, w, u, state, dy, ds):
+    """Launch the backward kernel on the current stream without
+    synchronising: the gradients of ``rwkv_wkv``'s inputs given dy (B, S,
+    H, hd) and ds (B, H, hd, hd), the gradients of y and of the final
+    state (f32; packed here when they are not).  Returns (dr, dk, dv, dw,
+    du, dstate): dr, dk, dv and du in r's type, dw and dstate f32;
+    matches ``ref.rwkv_wkv_bwd_ref``.  Takes what the forward takes."""
+    for name, t, like in (("dy", dy, r), ("ds", ds, state)):
+        if tuple(t.shape) != tuple(like.shape):
+            raise ValueError(f"{name} must have shape {tuple(like.shape)}, "
+                             f"got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != r.device:
+            raise ValueError(f"{name} is on {t.device}, r on {r.device}")
+    B, S, H, hd = _check(r, k, v, w, u, state)
+    check_copy_alignment(r, k, v, w)
+    dy, ds = _packed(dy), _packed(ds)
+    dev = r.device
+    dr, dk, dv = (torch.empty((B, S, H, hd), dtype=r.dtype, device=dev)
+                  for _ in range(3))
+    dw = torch.empty((B, S, H, hd), dtype=torch.float32, device=dev)
+    du = torch.empty((H, hd), dtype=r.dtype, device=dev)
+    dstate = torch.empty_like(state)
+    ckpt = torch.empty((B, H, -(-S // CHUNK), hd, hd), dtype=torch.float32,
+                       device=dev)
+    du_part = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = _bwd_entry()(
+            *(t.data_ptr() for t in (r, k, v, w, u, state, dy, ds, dr, dk,
+                                     dv, dw, du, dstate, ckpt, du_part)),
+            B, S, H, hd, _DTYPES[r.dtype],
+            *(t.stride(i) for t in (r, k, v, w) for i in (0, 1, 2)),
+            build.stream_handle(dev))
+    build.check_launch(code, "rwkv_wkv_bwd")
+    LAUNCHES["rwkv_wkv_bwd"] += 1
+    return dr, dk, dv, dw, du, dstate

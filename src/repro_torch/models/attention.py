@@ -4,7 +4,9 @@ Port of the reference's ``models/attention.py``.  Train and prefill
 (no cache, positions ``arange(S)``) go through ``kernels.ops
 .flash_attention``: the hand-written kernel on the card, its plain twin
 on the CPU.  That is the function the reference's Pallas kernel computes
-in place of ``blocked_attention``.  Decode (with a cache) runs
+in place of ``blocked_attention``; its gradient is the hand-written
+backward kernel on the card (the plain backward on the CPU), where the
+reference differentiates ``blocked_attention`` with XLA.  Decode (with a cache) runs
 ``blocked_attention`` in plain PyTorch, as the reference computes decode
 attention outside any kernel.
 """

@@ -6,8 +6,10 @@ goes through ``kernels.ops.rwkv_wkv`` in prefill (S = prompt length) and
 in decode (S = 1): the hand-written kernel on the card, which keeps the
 state in registers for the whole sequence, and its plain twin on the CPU.
 That is the call the reference makes to ``_wkv_scan``.  Its chunked
-``jax.checkpoint`` only saves memory in a backward pass; serving takes
-none, so nothing here chunks time.
+``jax.checkpoint`` only saves memory in a backward pass: in training the
+gradient is the hand-written backward kernel on the card (the plain
+backward on the CPU), which keeps the state every 64 steps as the
+reference's chunks do; the forward chunks nothing.
 """
 
 from __future__ import annotations

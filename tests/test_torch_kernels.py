@@ -769,7 +769,8 @@ def test_build_names_each_library_by_its_source_and_needs_nvcc(monkeypatch):
     a changed source rebuilds; without nvcc the build raises."""
     from repro_torch.kernels import build
     paths = {name: build.library_path(name) for name in build.SOURCES}
-    assert set(paths) == {"flash_attention", "rwkv_wkv", "chol_update"}
+    assert set(paths) == {"flash_attention", "flash_attention_bwd",
+                          "rwkv_wkv", "rwkv_wkv_bwd", "chol_update"}
     for name, path in paths.items():
         assert path.parent == build.BUILD_DIR
         assert path.name.startswith(name + "-") and path.suffix == ".so"
@@ -783,106 +784,6 @@ def test_build_names_each_library_by_its_source_and_needs_nvcc(monkeypatch):
         build.nvcc()
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         build.check_launch(9, "rwkv_wkv")
-
-
-# --------------------------------------------------------------------------
-# gradients through K3/K4: the forward's kernel, the twin's backward
-# --------------------------------------------------------------------------
-
-def _attn_args(dtype, device, seed=0, requires_grad=True):
-    g = torch.Generator().manual_seed(seed)
-    return [torch.randn(2, 37, n, 32, generator=g).to(dtype).to(device)
-            .requires_grad_(requires_grad) for n in (4, 2, 2)]
-
-
-def _wkv_args(device, seed=0, requires_grad=True, dtype=torch.float32):
-    """r, k, v, u in ``dtype``; w and the state in f32, as K4 takes them."""
-    g = torch.Generator().manual_seed(seed)
-    r, k, v = (torch.randn(2, 9, 3, 16, generator=g).to(dtype)
-               for _ in range(3))
-    w = torch.exp(-torch.exp(-6.0 + 0.5 * torch.randn(2, 9, 3, 16,
-                                                      generator=g)))
-    u = (0.5 * torch.randn(3, 16, generator=g)).to(dtype)
-    s0 = 0.1 * torch.randn(2, 3, 16, 16, generator=g)
-    return [t.to(device).requires_grad_(requires_grad)
-            for t in (r, k, v, w, u, s0)]
-
-
-def _loss(out):
-    outs = out if isinstance(out, tuple) else (out,)
-    return sum(0.5 * (o.float() ** 2).sum() for o in outs)
-
-
-def _grads(fn, args, **kw):
-    for a in args:
-        a.grad = None
-    _loss(fn(*args, **kw)).backward()
-    return [a.grad.clone() for a in args]
-
-
-@pytest.mark.parametrize("name", ["flash_attention", "rwkv_wkv"])
-def test_twin_grad_carries_the_twins_gradients(name):
-    """``with_twin_grad`` around a forward that records no graph (as a
-    kernel launch does) gives every input the plain twin's gradient,
-    bit for bit, the wkv state included; with no input requiring grad it
-    adds nothing to autograd."""
-    twin = getattr(ref, f"{name}_ref")
-    args = (_attn_args(torch.float32, "cpu") if name == "flash_attention"
-            else _wkv_args("cpu"))
-    kw = dict(causal=True, window=5) if name == "flash_attention" else {}
-    kernel_like = torch.no_grad()(twin)
-    got = _grads(lambda *a, **k: ops.with_twin_grad(kernel_like, twin, *a,
-                                                    **k), args, **kw)
-    want = _grads(twin, args, **kw)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    plain = [a.detach() for a in args]
-    out = ops.with_twin_grad(kernel_like, twin, *plain, **kw)
-    outs = out if isinstance(out, tuple) else (out,)
-    assert all(o.grad_fn is None for o in outs)
-
-
-def test_twin_grad_skips_outputs_and_inputs_without_grad():
-    """Only r requires grad: the wkv state output does not depend on it,
-    and the other inputs get no gradient."""
-    args = _wkv_args("cpu", requires_grad=False)
-    args[0].requires_grad_(True)
-    y, s = ops.with_twin_grad(torch.no_grad()(ref.rwkv_wkv_ref),
-                              ref.rwkv_wkv_ref, *args)
-    (y.sum() + s.sum()).backward()
-    assert args[0].grad is not None
-    assert all(a.grad is None for a in args[1:])
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("name,dtype,tol", [
-    ("flash_attention", torch.bfloat16, 2e-2),
-    ("flash_attention", torch.float32, 2e-4),
-    ("rwkv_wkv", torch.float32, 2e-4),
-    ("rwkv_wkv", torch.bfloat16, 2.0 ** -8)])
-def test_kernel_gradients_equal_the_twins_on_card(cuda, name, dtype, tol):
-    """Gradients of a scalar loss through ops.flash_attention and
-    ops.rwkv_wkv on the card (kernel forward, twin backward) against the
-    twins' own, to the forward tolerances (the loss's gradient is the
-    kernel's output, which sums in another order): within tol·(max|grad|
-    + |grad|), and each call one launch.  K4's bf16 gradients are f32
-    gradients rounded to bf16, where two may land one step (2⁻⁸) apart."""
-    if name == "flash_attention":
-        args = _attn_args(dtype, cuda)
-        args = [a.detach().requires_grad_(True) for a in args]
-        fn, twin = ops.flash_attention, ref.flash_attention_ref
-    else:
-        args = [a.detach().requires_grad_(True)
-                for a in _wkv_args(cuda, dtype=dtype)]
-        fn, twin = ops.rwkv_wkv, ref.rwkv_wkv_ref
-    before = LAUNCHES[name]
-    got = _grads(fn, args)
-    assert LAUNCHES[name] == before + 1
-    want = _grads(twin, args)
-    for g, w in zip(got, want):
-        scale = float(w.float().abs().max())
-        torch.testing.assert_close(g.float(), w.float(), rtol=tol,
-                                   atol=tol * scale)
 
 
 # --------------------------------------------------------------------------
