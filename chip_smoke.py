@@ -216,6 +216,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import inspect
 import json
 import math
 import os
@@ -2092,14 +2093,19 @@ def phase_lowrank(torch, rt, report, launches):
 
 
 def grad_inputs(torch, kernel, shape, dtype, gen):
-    """One input set of a backward kernel: K3's (q, k, v, o, do) with o
-    the forward kernel's output, or K4's (r, k, v, w, u, state, dy, ds)
-    with a random state and random gradients of y and the final state."""
+    """One input set of a backward kernel: K3's (q, k, v, o, do, lse) with
+    o and lse the forward kernel's output and log-sum-exp (a tree whose
+    forward keeps no lse gives none), or K4's (r, k, v, w, u, state, dy,
+    ds) with a random state and random gradients of y and the final
+    state."""
     from repro_torch.kernels.flash_attention import flash_attention
     if kernel == "flash_attention":
         q, k, v = attn_inputs(torch, *shape, dtype, gen)
         do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
-        return q, k, v, flash_attention(q, k, v), do
+        if "return_lse" not in inspect.signature(flash_attention).parameters:
+            return q, k, v, flash_attention(q, k, v), do, None
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        return q, k, v, o, do, lse
     b, s, h, hd = shape
     dy = torch.randn(b, s, h, hd, device="cuda", generator=gen)
     ds = torch.randn(b, h, hd, hd, device="cuda", generator=gen)
@@ -2128,6 +2134,30 @@ def wkv_bwd_bound(b, s, h, hd, dtype):
     return nbytes, flops, PEAK_FLOPS["float32"]
 
 
+def attn_bwd(q, k, v, o, do, lse):
+    """K3's backward kernel as ``ops``' backward calls it: with the
+    forward's log-sum-exp (where the tree's forward keeps one)."""
+    from repro_torch.kernels import flash_attention as fa
+    if lse is None:
+        return fa.flash_attention_bwd(q, k, v, o, do)
+    return fa.flash_attention_bwd(q, k, v, o, do, lse=lse)
+
+
+def attn_bwd_plain(q, k, v, o, do, lse):
+    """The plain backward, which rebuilds L itself."""
+    from repro_torch.kernels import ref
+    return ref.flash_attention_bwd_ref(q, k, v, o, do)
+
+
+def bwd_calls(kernel):
+    """(the backward kernel, its plain version) on ``grad_inputs``' sets."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv_wkv as wkv
+    if kernel == "flash_attention":
+        return attn_bwd, attn_bwd_plain
+    return wkv.rwkv_wkv_bwd, ref.rwkv_wkv_bwd_ref
+
+
 def stream_ms(torch, fn, arg_sets):
     """Time on the card of one call that a CUDA graph cannot capture
     (autograd runs a backward on the stream of its forward): back-to-back
@@ -2151,7 +2181,7 @@ def library_attention_bwd_ms(torch, sets):
     timed by ``stream_ms``."""
     import torch.nn.functional as F
     prepared = []
-    for q, k, v, _, do in sets:
+    for q, k, v, _, do, *_ in sets:
         qq, kk, vv = (t.detach().transpose(1, 2).requires_grad_(True)
                       for t in (q, k, v))
         out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
@@ -2166,15 +2196,12 @@ def library_attention_bwd_ms(torch, sets):
 def bwd_against_plain(torch, kernel, shape, dtype, gen, tol):
     """The backward kernel against its plain version on one input set:
     each gradient within tol x (max |grad| + |grad|), one launch a call,
-    two calls bit-equal.  Returns the worst |err| / max |grad| and the
-    worst |err|."""
-    from repro_torch.kernels import LAUNCHES, ref
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rwkv_wkv as wkv
+    two calls bit-equal; K3's kernel also without the forward's L (its
+    pre-pass rebuilds it), held to the same tolerance.  Returns the worst
+    |err| / max |grad| and the worst |err|."""
+    from repro_torch.kernels import LAUNCHES
     name = f"{kernel}_bwd"
-    fn, plain = ((fa.flash_attention_bwd, ref.flash_attention_bwd_ref)
-                 if kernel == "flash_attention" else
-                 (wkv.rwkv_wkv_bwd, ref.rwkv_wkv_bwd_ref))
+    fn, plain = bwd_calls(kernel)
     args = grad_inputs(torch, kernel, shape, dtype, gen)
     before = LAUNCHES[name]
     got = fn(*args)
@@ -2186,29 +2213,38 @@ def bwd_against_plain(torch, kernel, shape, dtype, gen, tol):
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{name} {shape} {dtype}: two calls differ")
     want = plain(*args)
+    runs = [got]
+    if kernel == "flash_attention" and args[-1] is not None:
+        runs.append(fn(*args[:-1], None))
     worst = worst_abs = 0.0
-    for i, (g, w) in enumerate(zip(got, want)):
-        scale = max(w.float().abs().max().item(), 1e-30)
-        e = (g.float() - w.float()).abs().max().item()
-        if g.dtype != w.dtype or not torch.allclose(
-                g.float(), w.float(), rtol=tol, atol=tol * scale):
-            raise AssertionError(f"{name} {shape} {dtype} gradient {i}: "
-                                 f"max |err| {e} x max |grad| {scale}")
-        worst, worst_abs = max(worst, e / scale), max(worst_abs, e)
+    for run in runs:
+        for i, (g, w) in enumerate(zip(run, want)):
+            scale = max(w.float().abs().max().item(), 1e-30)
+            e = (g.float() - w.float()).abs().max().item()
+            if g.dtype != w.dtype or not torch.allclose(
+                    g.float(), w.float(), rtol=tol, atol=tol * scale):
+                raise AssertionError(f"{name} {shape} {dtype} gradient {i}"
+                                     f": max |err| {e} x max |grad| {scale}")
+            worst, worst_abs = max(worst, e / scale), max(worst_abs, e)
     return worst, worst_abs
 
 
 def phase_train_grad(torch, report):
     """The backward kernels of K3 and K4 against their plain versions at
-    the prefill and train shapes, in f32 and bf16, bit-reproducible; their
-    times at the train shape in f32 (the rows' numbers) and at the
-    prefill shape in bf16; then gradients through ops.flash_attention /
-    ops.rwkv_wkv on the card against autograd through the plain forwards.
-    A gradient has its input's type, so K4's bf16 gradients are f32 sums
-    rounded to bf16, where two may land one step apart (``BF16_STEP``)."""
+    the prefill and train shapes, in f32 and bf16, bit-reproducible, with
+    K3's route (``tc`` or ``simt``) for each; their times at the train
+    shape in f32 (the rows' numbers) and at the prefill shape in bf16;
+    then gradients through ops.flash_attention / ops.rwkv_wkv on the card
+    against autograd through the plain forwards.  K3's backward takes the
+    forward's log-sum-exp, as ``ops``' backward hands it over, and is timed
+    as SDPA's backward is, by ``stream_ms`` (CUDA events around
+    back-to-back calls; autograd runs SDPA's backward on the stream of its
+    forward, which a CUDA graph cannot capture); its CUDA-graph replay
+    time stands beside it as ``graph_ms``.  A gradient has its input's
+    type, so K4's bf16 gradients are f32 sums rounded to bf16, where two
+    may land one step apart (``BF16_STEP``)."""
     from repro_torch.kernels import LAUNCHES, ops, ref
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rwkv_wkv as wkv
     gen = torch.Generator(device="cuda").manual_seed(4)
     bf16, f32 = torch.bfloat16, torch.float32
     out = {}
@@ -2222,39 +2258,46 @@ def phase_train_grad(torch, report):
                 err, err_abs = bwd_against_plain(torch, kernel, shape, dtype,
                                                  gen, tol)
                 dt = str(dtype).split(".")[-1]
+                body = (fa.route(dtype, shape[-1])
+                        if kernel == "flash_attention" else "cuda")
                 row["checks"][f"{label} {dt}"] = {
                     "shape": list(shape), "max_rel_err": err,
-                    "max_abs_err": err_abs, "tol": tol}
-                log(f"{name} at {shape} {dt}: equals its plain version "
-                    f"within {err:.3e} x max |grad| (tol {tol}); two "
-                    f"calls bit-equal; one launch a call")
+                    "max_abs_err": err_abs, "tol": tol, "body": body}
+                log(f"{name} at {shape} {dt} ({body} body): equals its "
+                    f"plain version within {err:.3e} x max |grad| (tol "
+                    f"{tol}); two calls bit-equal; one launch a call")
                 torch.cuda.empty_cache()
         row["max_abs_err"] = max(c["max_abs_err"]
                                  for c in row["checks"].values())
         row["max_rel_err"] = max(c["max_rel_err"]
                                  for c in row["checks"].values())
-        fn, plain = ((fa.flash_attention_bwd, ref.flash_attention_bwd_ref)
-                     if kernel == "flash_attention" else
-                     (wkv.rwkv_wkv_bwd, ref.rwkv_wkv_bwd_ref))
+        fn, plain = bwd_calls(kernel)
+        attn = kernel == "flash_attention"
         for label, dtype in (("", f32), ("_prefill", bf16)):
             shape = shapes["train" if label == "" else "prefill"]
             dt = str(dtype).split(".")[-1]
-            nb, fl, peak = (attn_bwd_bound(*shape, 0, dt)
-                            if kernel == "flash_attention"
+            nb, fl, peak = (attn_bwd_bound(*shape, 0, dt) if attn
                             else wkv_bwd_bound(*shape, dt))
             sets = [grad_inputs(torch, kernel, shape, dtype, gen)
                     for _ in range(max(2, -(-2 * L2_BYTES // nb)))]
             b_row = bound_row(nb, fl, peak)
-            row.update({f"ms{label}": device_ms(torch, fn, sets),
+            row.update({f"ms{label}": (stream_ms if attn else device_ms)(
+                            torch, fn, sets),
                         f"plain_ms{label}": device_ms(torch, plain,
                                                       sets[:2]),
                         f"shape{label}": list(shape), f"dtype{label}": dt,
                         **{f"{k}{label}": v for k, v in b_row.items()}})
+            if attn:
+                row[f"graph_ms{label}"] = device_ms(torch, fn, sets)
+                row[f"body{label}"] = fa.route(dtype, shape[-1])
             row[f"library_ms{label}"] = (
-                library_attention_bwd_ms(torch, sets)
-                if kernel == "flash_attention" else None)
-            log(f"{name} at {shape} {dt}: on the card {row[f'ms{label}']:.5f}"
-                f" ms, plain {row[f'plain_ms{label}']:.5f} ms, library "
+                library_attention_bwd_ms(torch, sets) if attn else None)
+            log(f"{name} at {shape} {dt}"
+                + (f" ({row[f'body{label}']} body)" if attn else "")
+                + f": on the card {row[f'ms{label}']:.5f} ms"
+                + (f" (CUDA-graph replays {row[f'graph_ms{label}']:.5f} ms)"
+                   if attn else "")
+                + f", plain {row[f'plain_ms{label}']:.5f} ms, library "
                 f"{row[f'library_ms{label}']} ms over {len(sets)} input "
                 f"sets; bound {b_row['bound_ms']:.5f} ms by "
                 f"{b_row['bound_by']} ({nb} B, {fl} flop)")
@@ -2264,9 +2307,13 @@ def phase_train_grad(torch, report):
 
     # the dispatch on the card: the forward kernel and the backward
     # kernel, one launch each, against autograd through the plain forwards
+    # (K3 in f32 takes the simt body, in bf16 the tc body)
     cases = (("flash_attention", ops.flash_attention, ref.flash_attention_ref,
               lambda: attn_inputs(torch, *GRAD_SHAPES["flash_attention"][
                   "train"], f32, gen), 2e-4),
+             ("flash_attention", ops.flash_attention, ref.flash_attention_ref,
+              lambda: attn_inputs(torch, *GRAD_SHAPES["flash_attention"][
+                  "train"], bf16, gen), 2e-2),
              ("rwkv_wkv", ops.rwkv_wkv, ref.rwkv_wkv_ref,
               lambda: wkv_inputs(torch, *GRAD_SHAPES["rwkv_wkv"]["train"],
                                  f32, gen, True), 2e-4))
@@ -2296,10 +2343,11 @@ def phase_train_grad(torch, report):
                 raise AssertionError(f"train_grad ops.{name} input {i}: "
                                      f"max |err| {e} x max |grad| {scale}")
             worst = max(worst, e / scale)
-        out[f"ops_{name}"] = {"shape": list(args[0].shape),
-                              "max_rel_err": worst, "tol": tol,
-                              "seconds": secs, "autograd_seconds": twin_s}
-        log(f"train_grad ops.{name} at {tuple(args[0].shape)} f32: "
+        dt = str(args[0].dtype).split(".")[-1]
+        out[f"ops_{name}" + ("" if dt == "float32" else f"_{dt}")] = {
+            "shape": list(args[0].shape), "dtype": dt, "max_rel_err": worst,
+            "tol": tol, "seconds": secs, "autograd_seconds": twin_s}
+        log(f"train_grad ops.{name} at {tuple(args[0].shape)} {dt}: "
             f"gradients of {len(args)} inputs (forward and backward "
             f"kernels) equal autograd through the plain forward within "
             f"{worst:.3e} x max |grad|; forward + backward {secs:.3f} s "
@@ -2310,15 +2358,14 @@ def phase_train_grad(torch, report):
                             if k.startswith("ops_")}
 
 
-def sass_counts(build):
+def sass_counts(build, name="flash_attention"):
     """Counts of the tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
-    in the built flash_attention library, from ``cuobjdump -sass`` beside
-    ``nvcc``; None where the toolkit has no ``cuobjdump``."""
+    in one built library (K3's forward or backward), from ``cuobjdump
+    -sass`` beside ``nvcc``; None where the toolkit has no ``cuobjdump``."""
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     if not os.access(tool, os.X_OK):
         return None
-    sass = subprocess.run([tool, "-sass",
-                           str(build.library_path("flash_attention"))],
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
     return {op: len(re.findall(rf"\b{op}\b", sass))
@@ -2378,11 +2425,16 @@ def phase_build(report):
             if ("Compiling entry" in line or "Used" in line or "spill" in line
                     or "arning" in line):
                 log(f"  {name}: {line.strip()}")
-    counts = sass_counts(build)
-    report["build"]["flash_attention_sass"] = counts
-    log("flash_attention library, cuobjdump -sass: " + (
-        "cuobjdump not found" if counts is None else
-        f"{counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG instructions"))
+    for name in ("flash_attention", "flash_attention_bwd"):
+        counts = sass_counts(build, name)
+        report["build"][f"{name}_sass"] = counts
+        log(f"{name} library, cuobjdump -sass: " + (
+            "cuobjdump not found" if counts is None else
+            f"{counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG "
+            f"instructions"))
+        if counts is not None and not (counts["HGMMA"] and
+                                       counts["UTMALDG"]):
+            raise AssertionError(f"{name}: no HGMMA or UTMALDG in its SASS")
 
 
 # --------------------------------------------------------------------------
@@ -3791,7 +3843,8 @@ def launches_by_path(report):
 def kernels_line(report, launches):
     """One row per kernel: the contract's keys first, then the extra
     measurements each row carries (shapes, one-call times, decode, the
-    launches of each main-path run)."""
+    launches of each main-path run); an extra never replaces a contract
+    key."""
     paths = launches_by_path(report)
     rows = []
     for name in KERNELS:
@@ -3804,7 +3857,7 @@ def kernels_line(report, launches):
                "library_ms": r.pop("library_ms", None),
                "launches_by_path": {p: c[name] for p, c in paths.items()
                                     if c.get(name)}}
-        row.update(r)
+        row.update({k: v for k, v in r.items() if k not in row})
         rows.append(row)
     return json.dumps({"kernels": rows})
 

@@ -28,12 +28,16 @@ the aggregation kernels also get one call with the host's launch
   (4, 1024, 40, 64) and decode (4, 1, 40, 64), few heads (1, 1024, 4, 64);
 - region_aggregate (N, D): the dense path's (32, 8192) and (32, 2²²);
 - ranl_update (N, D): the diag path's (32, 4096) and (32, 2²²);
-- flash_attention_bwd, rwkv_wkv_bwd: the backward kernels at the train
-  shapes, phi4-mini's (2, 512, 24, 8, 128) and rwkv6-3b's (2, 512, 40,
-  64), in f32 (the train path's type) and bf16, beside the plain backward
-  and, for flash_attention_bwd, the backward of
-  ``scaled_dot_product_attention`` through autograd (``chip_smoke.py``'s
-  train_grad timings).
+- flash_attention_bwd: phi4-mini's train shape (2, 512, 24, 8, 128) and
+  prefill shape (4, 1024, 24, 8, 128), each in f32 (the train path's
+  type, the simt body) and bf16 (the tc body), with the forward's
+  log-sum-exp where the tree's forward keeps one, timed as
+  ``chip_smoke.py``'s train_grad times it: CUDA events around
+  back-to-back calls (``stream_ms``), beside its CUDA-graph replay time,
+  the plain backward and the backward of ``scaled_dot_product_attention``
+  through autograd, timed the same way;
+- rwkv_wkv_bwd: rwkv6-3b's train shape (2, 512, 40, 64) in f32 and bf16,
+  beside the plain backward.
 
 Prints the card's name and power limit, then one line per (run, shape).
 Needs a CUDA card.
@@ -54,7 +58,9 @@ SHAPES = {
     "region_aggregate": ((32, 8192), (32, 1 << 22)),
     "ranl_update": ((32, 4096), (32, 1 << 22)),
     "flash_attention_bwd": (((2, 512, 24, 8, 128), "float32"),
-                            ((2, 512, 24, 8, 128), "bfloat16")),
+                            ((2, 512, 24, 8, 128), "bfloat16"),
+                            ((4, 1024, 24, 8, 128), "bfloat16"),
+                            ((4, 1024, 24, 8, 128), "float32")),
     "rwkv_wkv_bwd": (((2, 512, 40, 64), "float32"),
                      ((2, 512, 40, 64), "bfloat16")),
 }
@@ -141,28 +147,24 @@ def time_backward(C, torch, tree, gen, name):
     (``chip_smoke.bwd_against_plain``: the tolerances of its train_grad
     phase, one launch a call, two calls bit-equal), then timed beside the
     plain backward and (K3) the library's backward."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import rwkv_wkv as wkv
     kernel = name[:-len("_bwd")]
-    fn, plain = ((fa.flash_attention_bwd, ref.flash_attention_bwd_ref)
-                 if kernel == "flash_attention" else
-                 (wkv.rwkv_wkv_bwd, ref.rwkv_wkv_bwd_ref))
+    fn, plain = C.bwd_calls(kernel)
+    attn = kernel == "flash_attention"
     for shape, dt in SHAPES[name]:
         dtype = getattr(torch, dt)
         tol = 2e-4 if dt == "float32" else (
             2e-2 if kernel == "flash_attention" else C.BF16_STEP)
         C.bwd_against_plain(torch, kernel, shape, dtype, gen, tol)
-        nb, fl, peak = (C.attn_bwd_bound(*shape, 0, dt)
-                        if kernel == "flash_attention"
+        nb, fl, peak = (C.attn_bwd_bound(*shape, 0, dt) if attn
                         else C.wkv_bwd_bound(*shape, dt))
         sets = _sets(C, nb, lambda: C.grad_inputs(torch, kernel, shape,
                                                   dtype, gen))
-        ms = C.device_ms(torch, fn, sets)
+        ms = (C.stream_ms if attn else C.device_ms)(torch, fn, sets)
         plain_ms = C.device_ms(torch, plain, sets[:2])
-        lib = (f"; scaled_dot_product_attention backward "
+        lib = (f"; CUDA-graph replays {C.device_ms(torch, fn, sets):.5f} ms"
+               f"; scaled_dot_product_attention backward "
                f"{C.library_attention_bwd_ms(torch, sets):.5f} ms"
-               if kernel == "flash_attention" else "")
+               if attn else "")
         b = C.bound_row(nb, fl, peak)
         print(f"{tree} {shape} {dt}: {ms:.5f} ms (bound {b['bound_ms']:.5f}"
               f" ms by {b['bound_by']}); plain {plain_ms:.5f} ms{lib}",

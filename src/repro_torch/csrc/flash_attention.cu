@@ -10,7 +10,10 @@
 // Masks: k <= q (causal) and k > q - window (window > 0), positions
 // 0..S-1 for both q and k; rows and keys past S are masked in the kernel,
 // so S need not be a multiple of a tile.  Inputs are read in their given
-// strides (the head dim contiguous).
+// strides (the head dim contiguous).  Given a pointer, either body also
+// writes each row's log-sum-exp L (B, H, S) in f32, which the backward
+// (flash_attention_bwd.cu) takes instead of recomputing it; the serve path
+// passes none.
 //
 // What bounds it on this card: at phi4-mini's prefill, (4, 1024, 24, 8,
 // 128) in bf16, the causal products are 2.58e10 flops, 26 us at the
@@ -96,6 +99,7 @@
 #include <string.h>
 
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 // ==========================================================================
 // simt::attn_kernel: f32 at any hd, bf16 at hd 32
@@ -132,9 +136,9 @@ constexpr int smem_floats() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, T* __restrict__ o, int S, int H,
-            int groups, Strides sq, Strides sk, Strides sv, int causal,
-            int window, float scale) {
+            const T* __restrict__ v, T* __restrict__ o,
+            float* __restrict__ lse, int S, int H, int groups, Strides sq,
+            Strides sk, Strides sv, int causal, int window, float scale) {
   constexpr int QP = HD + 4, KP = HD + 4, PP = BK + 4, NC = HD / 16;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -269,13 +273,16 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < NC; ++c)
         ob[(long long)qi * H * HD + tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
+      if (lse != nullptr && tx == 0)     // the row's log-sum-exp
+        lse[((long long)b * H + h) * S + qi] =
+            m[i] + logf(fmaxf(l[i], 1e-30f));
     }
   }
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int KV, Strides sq, Strides sk, Strides sv,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int KV, Strides sq, Strides sk, Strides sv,
            int causal, int window, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * 4;
   static bool attr_set = false;      // once per instantiation
@@ -289,22 +296,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   attn_kernel<T, HD><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, H / KV, sq, sk, sv,
-      causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, H / KV, sq, sk,
+      sv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
-             int B, int S, int H, int KV, Strides sq, Strides sk,
+             float* lse, int B, int S, int H, int KV, Strides sq, Strides sk,
              Strides sv, int causal, int window, float scale,
              cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, sq, sk, sv,
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, S, H, KV, sq, sk, sv,
                                   causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, sq, sk, sv,
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, S, H, KV, sq, sk, sv,
                                   causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, sq, sk, sv,
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, S, H, KV, sq, sk, sv,
                                     causal, window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -320,6 +327,7 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
 namespace tc {
 
 using namespace tma;
+using namespace tcore;
 
 constexpr int BQ = 128;              // q rows of a block: two warpgroups
 constexpr int BK = 128;              // kv rows of a tile
@@ -345,46 +353,6 @@ struct Layout {                      // shared memory, in bytes
   static constexpr int BYTES = BAR_OFFSET + (2 * STAGES + 1) * 8 + 1024;
 };
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(PENDING) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-// 2^x on the special-function unit; 2^-inf = 0
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Named barriers over the two consumer warpgroups (256 threads): one
 // warpgroup syncs, the other arrives.
 __device__ __forceinline__ void named_sync(int id) {
@@ -392,99 +360,6 @@ __device__ __forceinline__ void named_sync(int id) {
 }
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;" :: "r"(id) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// D(64x128, f32) (+)= A(64x16, smem) * B(16x128, smem), both K-major.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                           uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D(64x64, f32) += A(64x16, registers) * B(16x64, smem, N-major).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
-                                            uint32_t a1, uint32_t a2,
-                                            uint32_t a3, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
-}
-
-// D(64x128, f32) += A(64x16, registers) * B(16x128, smem, N-major).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
-                                            uint32_t a1, uint32_t a2,
-                                            uint32_t a3, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
 // One warpgroup's turn on the tensor cores.  It issues S = Q K^T of this
@@ -559,8 +434,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 attn_kernel(const __grid_constant__ CUtensorMap tmq,
             const __grid_constant__ CUtensorMap tmk,
             const __grid_constant__ CUtensorMap tmv,
-            __nv_bfloat16* __restrict__ o, int S, int B, int H, int groups,
-            int causal, int window, float scale_log2) {
+            __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
+            int B, int H, int groups, int causal, int window,
+            float scale_log2) {
   using L = Layout<HD>;
   constexpr int NS = BK / 2, NO = HD / 2;   // accumulator floats a thread
   extern __shared__ uint8_t smem_raw[];
@@ -767,6 +643,14 @@ attn_kernel(const __grid_constant__ CUtensorMap tmq,
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * t) = __floats2bfloat162_rn(
           o_acc[4 * t + 2] * inv1, o_acc[4 * t + 3] * inv1);
   }
+  if (lse != nullptr && cq == 0) {
+    // the row's log-sum-exp of the scaled scores, natural log:
+    // (m scale_log2 + log2 l) ln 2
+    float* lrow = lse + (static_cast<long long>(b) * H + h) * S;
+    constexpr float LN2 = 0.6931471805599453f;
+    if (r0 < S) lrow[r0] = (m0 * scale_log2 + log2f(fmaxf(l0, 1e-30f))) * LN2;
+    if (r1 < S) lrow[r1] = (m1 * scale_log2 + log2f(fmaxf(l1, 1e-30f))) * LN2;
+  }
 }
 
 // A map's arguments, as the wrapper computes them (flash_attention.py,
@@ -806,8 +690,8 @@ int encode(CUtensorMap* map, const void* base, const MapArgs& a) {
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int KV, int causal, int window, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int KV, int causal, int window, float scale,
            const MapArgs& mq, const MapArgs& mk, const MapArgs& mv,
            cudaStream_t stream) {
   if (!map_matches(mq, HD, H, S, B, BQ) || !map_matches(mk, HD, KV, S, B, BK)
@@ -829,8 +713,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const long long blocks = static_cast<long long>((S + BQ - 1) / BQ) * B * H;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   attn_kernel<HD><<<static_cast<unsigned>(blocks), THREADS, bytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, B, H, H / KV, causal,
-      window, scale * 1.4426950408889634f);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, B, H, H / KV,
+      causal, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -841,22 +725,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // or type they do not take, or (tc) 10000 + the driver's CUresult when a
 // tensor map cannot be encoded.
 
+// Both take `lse`, a (B, H, S) f32 output for each row's log-sum-exp of
+// its scaled scores (the backward's L), or null where no one needs it (the
+// serve path).
+
 // The SIMT body.  dtype: 0 = f32, 1 = bf16 for q, k, v and o; strides in
 // elements.
 extern "C" int flash_attention_simt_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int S,
-    int H, int KV, int hd, int dtype, int causal, int window, float scale,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int S, int H, int KV, int hd, int dtype, int causal, int window,
+    float scale,
     long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, void* stream) {
   const simt::Strides sq{qsb, qss, qsh}, sk{ksb, kss, ksh}, sv{vsb, vss, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return simt::dispatch<float>(hd, q, k, v, o, B, S, H, KV, sq, sk, sv,
+    return simt::dispatch<float>(hd, q, k, v, o, l, B, S, H, KV, sq, sk, sv,
                                  causal, window, scale, st);
   if (dtype == 1)
-    return simt::dispatch<__nv_bfloat16>(hd, q, k, v, o, B, S, H, KV, sq, sk,
-                                         sv, causal, window, scale, st);
+    return simt::dispatch<__nv_bfloat16>(hd, q, k, v, o, l, B, S, H, KV, sq,
+                                         sk, sv, causal, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -864,8 +754,8 @@ extern "C" int flash_attention_simt_launch(
 // dims[4], byte strides[3], box[4] (see MapArgs).  o is (B, S, H, hd),
 // contiguous.
 extern "C" int flash_attention_tc_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int S,
-    int H, int KV, int hd, int causal, int window, float scale,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int S, int H, int KV, int hd, int causal, int window, float scale,
     const long long* q_map, const long long* k_map, const long long* v_map,
     void* stream) {
   tc::MapArgs mq, mk, mv;
@@ -873,11 +763,12 @@ extern "C" int flash_attention_tc_launch(
   memcpy(&mk, k_map, sizeof mk);
   memcpy(&mv, v_map, sizeof mv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 64: return tc::launch<64>(q, k, v, o, B, S, H, KV, causal, window,
+    case 64: return tc::launch<64>(q, k, v, o, l, B, S, H, KV, causal, window,
                                    scale, mq, mk, mv, st);
-    case 128: return tc::launch<128>(q, k, v, o, B, S, H, KV, causal, window,
-                                     scale, mq, mk, mv, st);
+    case 128: return tc::launch<128>(q, k, v, o, l, B, S, H, KV, causal,
+                                     window, scale, mq, mk, mv, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -47,26 +47,28 @@ def _wants_grad(*inputs) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
 
 
-def _attention_fwd(q, k, v, causal, window):
-    if _on_cpu(q):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+def _attention_fwd(q, k, v, causal, window, return_lse=False):
+    fwd = ref.flash_attention_ref if _on_cpu(q) else _fa.flash_attention
+    return fwd(q, k, v, causal=causal, window=window, return_lse=return_lse)
 
 
 class _FlashAttention(torch.autograd.Function):
+    """Saves the inputs, the output and each row's log-sum-exp, so the
+    backward needs only D = rowsum(dO ⊙ O) besides its products."""
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out = _attention_fwd(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _attention_fwd(q, k, v, causal, window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         bwd = (ref.flash_attention_bwd_ref if _on_cpu(q)
                else _fa.flash_attention_bwd)
-        grads = bwd(q, k, v, out, do, causal=ctx.causal, window=ctx.window)
+        grads = bwd(q, k, v, out, do, causal=ctx.causal, window=ctx.window,
+                    lse=lse)
         return (*(g if n else None
                   for g, n in zip(grads, ctx.needs_input_grad)), None, None)
 

@@ -37,13 +37,14 @@ def ranl_update_ref(params, hdiag, grads, masks, memory, *, mu: float,
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        scale: float | None = None):
+                        scale: float | None = None, return_lse: bool = False):
     """Full-softmax attention: the plain version of ``flash_attention``.
 
     q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) with H % KV == 0.
     Sliding ``window`` (0 = unbounded) measured in absolute positions,
     q positions = arange(Skv - Sq, Skv) (suffix alignment), k = arange(Skv).
-    Returns (B, Sq, H, hd) in q.dtype."""
+    Returns (B, Sq, H, hd) in q.dtype, and with ``return_lse`` also each
+    row's log-sum-exp of its masked scaled scores, (B, H, Sq) f32."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     groups = H // KV
@@ -60,8 +61,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         valid &= kpos > qpos - window
     s = torch.where(valid[None, None], s, -1e30)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, vr)
-    return out.to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vr).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
 
 
 def rwkv_wkv_ref(r, k, v, w, u, state):
@@ -84,10 +85,11 @@ def rwkv_wkv_ref(r, k, v, w, u, state):
 
 
 def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
-                            window: int = 0):
+                            window: int = 0, lse=None):
     """The gradients of ``flash_attention_ref`` at (q, k, v), given its
-    output ``o`` and the output's gradient ``do``: the plain version of
-    ``flash_attention_bwd``, written out on full score matrices with the
+    output ``o``, the output's gradient ``do`` and optionally its
+    log-sum-exp ``lse`` (B, H, Sq) (else computed here): the plain version
+    of ``flash_attention_bwd``, written out on full score matrices with the
     kv heads kept at KV width (query head h = c·G + g of kv head c).
 
         P = exp(s − L),  L = logsumexp(s) over the row's unmasked keys
@@ -114,7 +116,8 @@ def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
     if window:
         valid &= kpos > qpos - window
     s = torch.where(valid, s, -1e30)
-    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    lse = (torch.logsumexp(s, dim=-1, keepdim=True) if lse is None else
+           lse.float().reshape(B, KV, G, Sq, 1))
     p = torch.where(valid, torch.exp(s - lse), 0.0)
     d = torch.einsum("bqcgd,bqcgd->bcgq", dof, of)[..., None]
     dv = torch.einsum("bcgqk,bqcgd->bkcd", p, dof)

@@ -62,16 +62,7 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.models import lm_loss  # noqa: E402
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread while a module's tests run: under pytest-xdist
-    every worker's torch would otherwise spin a thread a core on shared
-    cores, which these small-tensor tests pay for many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
+from _torch_threads import one_torch_thread  # noqa: E402, F401
 
 KEY = jax.random.PRNGKey(0)
 TOL = 1e-4

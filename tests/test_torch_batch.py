@@ -12,7 +12,7 @@ against the reference package.
   own batch-vs-scan agreement reaches (``tests/test_core_ranl.py`` holds
   it to 2e-4), and
   2e-2 with int8 uplinks (one quantization step, see
-  ``test_torch_options``); and row b against the port's scan run on key
+  ``_torch_options_helpers``); and row b against the port's scan run on key
   b;
 * the baselines (GD, SGD, Newton-exact, Newton-zero) within 2e-5·max|x|,
   ``rounds_to_tol`` equal.
@@ -37,6 +37,7 @@ import repro_torch  # noqa: E402
 from repro_torch import interop, prng  # noqa: E402
 from repro_torch.core import baselines as tbase  # noqa: E402
 from repro_torch.core import masks as tmasks  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402, F401
 
 KEY = jax.random.PRNGKey(3)
 KEYS = jax.random.split(KEY, 4)

@@ -24,6 +24,7 @@ from repro_torch.hetero import (  # noqa: E402
     make_scenario,
     pareto_cost,
 )
+from _torch_threads import one_torch_thread  # noqa: E402, F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")

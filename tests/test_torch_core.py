@@ -28,6 +28,7 @@ from repro_torch.core.aggregation import server_aggregate  # noqa: E402
 from repro_torch.core.compression import parse_compression, uplink_bytes  # noqa: E402
 from repro_torch.hetero import cost as tcost  # noqa: E402
 from repro_torch.interop import key_from_numpy  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402, F401
 
 KEY = jax.random.PRNGKey(0)
 TKEY = key_from_numpy(np.asarray(KEY))

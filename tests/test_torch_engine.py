@@ -24,6 +24,7 @@ import repro_torch  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core.masks import PolicyConfig as TPolicy  # noqa: E402
 from repro_torch.hetero import cost as tcost  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402, F401
 
 KEY = jax.random.PRNGKey(3)
 TKEY = interop.key_from_numpy(np.asarray(KEY))

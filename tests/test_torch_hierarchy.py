@@ -14,7 +14,7 @@ Problems and cost models are carried across with ``repro_torch.interop``
   reference's jnp aggregation) and solve the P pods' steps as one pair of
   triangular solves with P right-hand sides; 5e-2 under an int8 exchange
   or int8 uplinks and 1e-2 under bf16, one quantization step, as the
-  flat compressed runs (``test_torch_options``);
+  flat compressed runs (``_torch_options_helpers``);
 * ``pod_sum_compressed`` bit-exact on the same inputs; the pod scenarios'
   ``pod_bw`` exact and rates within rtol 1e-6 (as ``pareto_cost``).
 
@@ -47,6 +47,7 @@ from repro_torch.core.masks import PolicyConfig as TPolicy  # noqa: E402
 from repro_torch.hetero import cost as tcost  # noqa: E402
 from repro_torch.hetero import scenarios as tscen  # noqa: E402
 from repro_torch.hetero import time_to_target  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402, F401
 
 KEY = jax.random.PRNGKey(0)
 TKEY = interop.key_from_numpy(np.asarray(KEY))

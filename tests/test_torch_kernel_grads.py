@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import LAUNCHES, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import rwkv_wkv as WKV  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402, F401
 
 F32_TOL = 1e-5
 BF16_STEP = 2.0 ** -8
@@ -283,6 +284,126 @@ def test_plain_attention_backward_equals_reference_vjp_in_bf16(jax_ref):
 
 
 # --------------------------------------------------------------------------
+# K3's log-sum-exp, kept from the forward for the backward
+# --------------------------------------------------------------------------
+
+def _np_lse(q, k, causal, win):
+    """Each row's log-sum-exp of its masked scaled scores, in float64
+    numpy: (b, h, s)."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    kr = np.repeat(k.astype(np.float64), h // kv, axis=2)
+    sc = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kr) / np.sqrt(hd)
+    qpos, kpos = np.arange(s)[:, None], np.arange(s)[None, :]
+    valid = np.ones((s, s), bool)
+    if causal:
+        valid &= kpos <= qpos
+    if win:
+        valid &= kpos > qpos - win
+    sc = np.where(valid, sc, -np.inf)
+    m = sc.max(axis=-1, keepdims=True)
+    return (m + np.log(np.exp(sc - m).sum(axis=-1, keepdims=True)))[..., 0]
+
+
+@pytest.mark.parametrize("case", ["mha_hd32", "gqa3_hd128", "gqa3_window",
+                                  "S1", "S1_window", "noncausal_window"])
+def test_plain_forward_lse_equals_numpy_logsumexp(case):
+    b, s, h, kv, hd, win, causal = ATTN_CASES[case]
+    q, k, v, _ = _attn_arrays(b, s, h, kv, hd)
+    out, lse = ref.flash_attention_ref(*_attn_torch((q, k, v)),
+                                       causal=causal, window=win,
+                                       return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    torch.testing.assert_close(out, ref.flash_attention_ref(
+        *_attn_torch((q, k, v)), causal=causal, window=win))
+    np.testing.assert_allclose(_np(lse), _np_lse(q, k, causal, win),
+                               rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["gqa4_hd64", "gqa3_window", "S1",
+                                  "noncausal"])
+def test_plain_backward_takes_the_forward_lse(case, dtype):
+    """The gradients from the forward's L equal those from L recomputed."""
+    b, s, h, kv, hd, win, causal = ATTN_CASES[case]
+    q, k, v, do = _attn_torch(_attn_arrays(b, s, h, kv, hd),
+                              getattr(torch, dtype))
+    o, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=win,
+                                     return_lse=True)
+    got = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                      window=win, lse=lse)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                       window=win)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        _close(_np(g), _np(w), F32_TOL)
+
+
+def test_attention_function_saves_the_forward_lse(monkeypatch):
+    """ops' backward hands the forward's L to the backward."""
+    seen = {}
+    plain = ref.flash_attention_bwd_ref
+
+    def spy(*args, **kw):
+        seen["lse"] = kw.get("lse")
+        return plain(*args, **kw)
+    monkeypatch.setattr(ref, "flash_attention_bwd_ref", spy)
+    leaves, do = _attn_leaves()
+    out = ops.flash_attention(*leaves)
+    torch.autograd.grad(out, leaves, do)
+    _, want = ref.flash_attention_ref(*(t.detach() for t in leaves),
+                                      return_lse=True)
+    assert seen["lse"] is not None
+    torch.testing.assert_close(seen["lse"], want, rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------------
+# K3's backward: its two bodies, routed as the forward routes them
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,hd,body", [
+    ("float32", 32, "simt"), ("float32", 64, "simt"),
+    ("float32", 128, "simt"), ("bfloat16", 32, "simt"),
+    ("bfloat16", 64, "tc"), ("bfloat16", 128, "tc")])
+def test_backward_route_and_its_entry(dtype, hd, body):
+    """The backward takes the forward's route, and the source defines the
+    entry that route binds."""
+    from repro_torch.kernels import build
+    assert FA.route(getattr(torch, dtype), hd) == body
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert f'extern "C" int {FA.BWD_ENTRIES[body]}(' in src
+
+
+def test_backward_tma_checks_refuse_misaligned_q_and_repack_do():
+    """On the tc route q, k, v must suit TMA (the forward's check, which
+    raises); do, an incoming gradient, is repacked when TMA cannot read
+    it."""
+    flat = torch.zeros(1 + 16 * 2 * 64, dtype=torch.bfloat16)
+    odd = flat[1:].view(1, 16, 2, 64)
+    ok = torch.zeros(1, 16, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="base address"):
+        FA.check_tma_alignment(odd, ok, ok)
+    assert FA._tma_aligned(ok) and not FA._tma_aligned(odd)
+    wide = torch.zeros(1, 16, 2, 68, dtype=torch.bfloat16)[..., :64]
+    assert not FA._tma_aligned(wide)
+    assert FA._tma_aligned(wide.clone(memory_format=torch.contiguous_format))
+
+
+def test_backward_wrapper_checks_lse_on_meta_tensors():
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(*shape, dtype=dtype, device="meta")
+    q, k, v = meta(2, 8, 4, 32), meta(2, 8, 2, 32), meta(2, 8, 2, 32)
+    o, do = meta(2, 8, 4, 32), meta(2, 8, 4, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention_bwd(q, k, v, o, do, lse=meta(2, 4, 8))
+    with pytest.raises(ValueError, match="lse must be"):
+        FA.flash_attention_bwd(q, k, v, o, do, lse=meta(2, 8, 4))
+    with pytest.raises(ValueError, match="lse must be"):
+        FA.flash_attention_bwd(q, k, v, o, do,
+                               lse=meta(2, 4, 8, dtype=torch.bfloat16))
+
+
+# --------------------------------------------------------------------------
 # the autograd.Functions on the CPU
 # --------------------------------------------------------------------------
 
@@ -479,6 +600,63 @@ def test_attention_backward_kernel_equals_plain_on_card(cuda, case, dtype,
                                    atol=tol * scale)
 
 
+# (b, s, h, kv, hd, window): ragged S, GQA 3 and 4, a window
+TC_BWD_CASES = {
+    "hd64_S130_gqa3": (1, 130, 3, 1, 64, 0),
+    "hd128_S70_gqa4": (2, 70, 4, 1, 128, 0),
+    "hd128_S130_gqa3_window": (1, 130, 6, 2, 128, 17),
+    "hd64_S70_gqa4_window": (2, 70, 8, 2, 64, 5),
+    "hd128_S1": (2, 1, 4, 1, 128, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(TC_BWD_CASES))
+def test_tc_backward_with_the_forward_lse_on_card(cuda, case):
+    """The tensor-core backward (bf16, hd 64/128) from the forward kernel's
+    output and L against the plain backward; two calls bit-equal; the
+    forward's L against the plain L."""
+    b, s, h, kv, hd, win = TC_BWD_CASES[case]
+    q, k, v, do = (t.to(cuda) for t in _attn_torch(
+        _attn_arrays(b, s, h, kv, hd), torch.bfloat16))
+    assert FA.route(q.dtype, hd) == "tc"
+    o, lse = FA.flash_attention(q, k, v, window=win, return_lse=True)
+    _, lse_plain = ref.flash_attention_ref(q, k, v, window=win,
+                                           return_lse=True)
+    torch.testing.assert_close(lse, lse_plain, rtol=0, atol=2e-2)
+    before = LAUNCHES["flash_attention_bwd"]
+    got = FA.flash_attention_bwd(q, k, v, o, do, window=win, lse=lse)
+    again = FA.flash_attention_bwd(q, k, v, o, do, window=win, lse=lse)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == before + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, window=win, lse=lse)
+    scale = max(float(w.float().abs().max()) for w in want)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a) and g.dtype == w.dtype
+        np.testing.assert_allclose(_np(g.cpu()), _np(w.cpu()),
+                                   rtol=K3_BF16_TOL,
+                                   atol=K3_BF16_TOL * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["mha_hd32", "gqa3_window", "S1"])
+def test_forward_lse_equals_plain_lse_on_card(cuda, case, dtype):
+    b, s, h, kv, hd, win, causal = ATTN_CASES[case]
+    q, k, v, _ = (t.to(cuda) for t in _attn_torch(
+        _attn_arrays(b, s, h, kv, hd), getattr(torch, dtype)))
+    before = LAUNCHES["flash_attention"]
+    o, lse = FA.flash_attention(q, k, v, causal=causal, window=win,
+                                return_lse=True)
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert torch.equal(o, FA.flash_attention(q, k, v, causal=causal,
+                                             window=win))
+    _, want = ref.flash_attention_ref(q, k, v, causal=causal, window=win,
+                                      return_lse=True)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(lse, want, rtol=0, atol=tol)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, BF16_STEP)])
@@ -498,11 +676,21 @@ def test_wkv_backward_kernel_equals_plain_on_card(cuda, case, dtype, tol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["flash_attention", "rwkv_wkv"])
+@pytest.mark.parametrize("name", ["flash_attention", "rwkv_wkv",
+                                  "flash_attention_tc"])
 def test_gradients_through_ops_run_the_backward_kernels_on_card(cuda, name):
     """ops on the card: the forward kernel and the backward kernel, one
-    launch each, within 2e-4 of autograd through the plain forward."""
-    if name == "flash_attention":
+    launch each, within 2e-4 of autograd through the plain forward (the
+    bf16 tensor-core route within ``K3_BF16_TOL``)."""
+    tol = 2e-4
+    if name == "flash_attention_tc":
+        name, tol = "flash_attention", K3_BF16_TOL
+        q, k, v, g = _attn_torch(_attn_arrays(2, 70, 8, 2, 128),
+                                 torch.bfloat16)
+        leaves = [q, k, v]
+        fn, plain = ops.flash_attention, ref.flash_attention_ref
+        grads = (g.to(cuda),)
+    elif name == "flash_attention":
         leaves, g = _attn_leaves()
         fn, plain = ops.flash_attention, ref.flash_attention_ref
         grads = (g.to(cuda),)
@@ -520,4 +708,4 @@ def test_gradients_through_ops_run_the_backward_kernels_on_card(cuda, name):
     assert moved == {name: 1, f"{name}_bwd": 1}
     want = torch.autograd.grad(plain(*leaves), leaves, grads)
     for a, w in zip(got, want):
-        _close(_np(a.cpu()), _np(w.cpu()), 2e-4)
+        _close(_np(a.cpu()), _np(w.cpu()), tol)

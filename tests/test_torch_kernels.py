@@ -10,6 +10,7 @@ Attention and the wkv recurrence take their sums in another order too:
 those of tests/test_kernels.py, 2e-4 in f32 and 2e-2 in bf16."""
 
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from repro_torch.kernels import LAUNCHES, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import region_aggregate as K  # noqa: E402
 from repro_torch.kernels import rwkv_wkv as WKV  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402, F401
 
 SHAPES = [(1, 1), (3, 129), (7, 513)]
 MASKS = ["random", "all_false", "all_true"]
@@ -380,6 +382,23 @@ def test_cpu_dispatch_of_attention_and_wkv_takes_plain_version():
     assert dict(LAUNCHES) == before
 
 
+def test_plain_flash_attention_returns_lse_beside_the_same_output():
+    """With ``return_lse`` the plain forward returns the same output and
+    each row's log-sum-exp (B, H, S) f32: the softmax's normaliser, so
+    exp(s - L) sums to one over a row's kept keys."""
+    q, k, v = _t(*_attn_inputs(2, 40, 6, 2, 32))
+    out, lse = ref.flash_attention_ref(q, k, v, window=9, return_lse=True)
+    assert torch.equal(out, ref.flash_attention_ref(q, k, v, window=9))
+    assert lse.shape == (2, 6, 40) and lse.dtype == torch.float32
+    kr = k.repeat_interleave(3, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kr) / math.sqrt(32)
+    pos = torch.arange(40)
+    keep = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - 9)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    torch.testing.assert_close(p.sum(-1), torch.ones(2, 6, 40), rtol=0,
+                               atol=1e-5)
+
+
 def test_cuda_wrappers_reject_host_tensors():
     q, k, v = _t(*_attn_inputs(1, 8, 2, 1, 32))
     with pytest.raises(ValueError, match="CUDA"):
@@ -411,6 +430,22 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, b, s, h, kv, hd,
     assert got.dtype == q.dtype
     tol = 2e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kv,hd,win", CARD_ATTN_CASES, ids=str)
+def test_flash_attention_kernel_lse_matches_plain_on_card(cuda, b, s, h, kv,
+                                                          hd, win, dtype):
+    """Both bodies' log-sum-exp (the backward's L) against the plain
+    forward's; the output is the same with and without it."""
+    q, k, v = (t.to(getattr(torch, dtype))
+               for t in _t(*_attn_inputs(b, s, h, kv, hd), device=cuda))
+    out, lse = FA.flash_attention(q, k, v, window=win, return_lse=True)
+    assert torch.equal(out, FA.flash_attention(q, k, v, window=win))
+    _, want = ref.flash_attention_ref(q, k, v, window=win, return_lse=True)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(lse, want, rtol=0, atol=tol)
 
 
 @pytest.mark.gpu

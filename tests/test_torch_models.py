@@ -37,6 +37,7 @@ from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models import forward, init_decode_cache, init_model  # noqa: E402
 from repro_torch.models import io as tio  # noqa: E402
 from repro_torch.models.attention import blocked_attention  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402, F401
 
 KEY = jax.random.PRNGKey(0)
 SERVED = ["phi4-mini-3.8b", "rwkv6-3b"]

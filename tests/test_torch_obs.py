@@ -66,6 +66,7 @@ from repro_torch.obs import (  # noqa: E402
 )
 from repro_torch.obs.report import diff, render, render_diff, render_md  # noqa: E402
 from repro_torch.obs.report import main as report_main  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402, F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JKEY = jax.random.PRNGKey(3)

@@ -10,6 +10,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro_torch import prng  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402, F401
 
 SEEDS = [0, 1, 7, 42, 12345, 2**31 - 1]
 SHAPES = [(1,), (2,), (7,), (3, 5), (4, 129), (2, 3, 17)]

@@ -23,6 +23,7 @@ from repro.models.io import decode_window as jdecode_window  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config, smoke_variant  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402, F401
 
 
 def _reference_loop(params, prompt, cfg, gen):

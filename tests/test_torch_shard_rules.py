@@ -21,6 +21,7 @@ from repro.models import init_model as jinit  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import shard as tshard  # noqa: E402
 from repro_torch.tree import get, leaf_paths, num_layers  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402, F401
 
 FSDP = [(("pod", "data"), 32), (("data",), 16)]
 

@@ -46,6 +46,7 @@ from repro_torch import RanlOptions, prng  # noqa: E402
 from repro_torch.analysis import check_log, engine_contract  # noqa: E402
 from repro_torch.analysis.contracts import PARAM_SLACK  # noqa: E402
 from repro_torch.core.collectives import Collective  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402, F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D, N, T, Q = 48, 8, 12, 6

@@ -46,6 +46,7 @@ from repro.core import convex as jconvex  # noqa: E402
 from repro.core import hessian as jhessian  # noqa: E402
 from repro.core import make_quadratic  # noqa: E402
 from repro.hetero import scenarios as jscen  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402, F401
 
 # the module (the package exports a function of the same name)
 jra = importlib.import_module("repro.kernels.region_aggregate")
