@@ -102,7 +102,11 @@ the card and times both, then drives the port's paths at full width:
    row equal to the scan run of its key;
 14. lowrank_init: the chol_update kernel against the plain loop on the
    card (one worker's rank-4 fold at d = 8192, the whole factor at
-   d = 512, within ``CHOL_RTOL`` x max |L|) and their times; the init of
+   d = 512, within ``CHOL_RTOL`` x max |L|) and their times; the chain
+   alone (``chol_update.chain``: the dependent path of one column, 8192
+   times, in one thread) beside the byte bound, and the kernel's ratio to
+   each; one call as the init's split times it (host clock between two
+   synchronisations) beside the clone of L it makes; the init of
    ``hessian_rank=4`` on the dense main-path problem (N = 32, d = 8192),
    31 launches, its seconds split between eigh and the kernel; and
    ``hessian_rank=4`` at N = 32, d = 512, card against host;
@@ -119,7 +123,9 @@ the card and times both, then drives the port's paths at full width:
    gradients of a scalar loss through ``ops.flash_attention`` /
    ``ops.rwkv_wkv`` at the train shapes (the kernel forward and the
    backward kernel, one launch of each) against autograd through the
-   plain forwards;
+   plain forwards; K4's backward also with its launch geometry
+   (``wkv_bwd_geometry``), its registers and spills (``-Xptxas -v``) and
+   K4's forward timed on the same inputs;
 16. sharded: the 1-D sharded engine on ``torch.distributed`` (run after
    hierarchy).  (a) NCCL at world size 1 in this process: the dense and
    diag main paths, diag with ``overlap=True`` and dense with
@@ -1932,15 +1938,22 @@ def lowrank_init_split(torch, rt, problem, launches, loop=False):
     from repro_torch import prng
     from repro_torch.core import hessian
     from repro_torch.kernels import ops
-    split = {"eigh_s": 0.0, "chol_update_s": 0.0}
+    split = {"eigh_s": 0.0, "chol_update_s": 0.0,
+             "chol_update_device_s": 0.0}
 
     def timed(fn, key):
         def call(*args, **kw):
             torch.cuda.synchronize()
             t0 = time.time()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
             out = fn(*args, **kw)
+            b.record()
             torch.cuda.synchronize()
             split[key] += time.time() - t0
+            if key == "chol_update_s":      # the same calls on the card
+                split["chol_update_device_s"] += a.elapsed_time(b) * 1e-3
             return out
         return call
     opts = dict(num_regions=64, hessian_rank=LOWRANK["rank"], num_rounds=0)
@@ -1956,7 +1969,8 @@ def lowrank_init_split(torch, rt, problem, launches, loop=False):
         finally:
             hessian.sym_eigh, ops.chol_update = saved
     return init, {"init_s": init_s, **split,
-                  "rest_s": init_s - sum(split.values()), "launches": counts}
+                  "rest_s": init_s - split["eigh_s"] - split["chol_update_s"],
+                  "launches": counts}
 
 
 def loop_init(torch, rt):
@@ -2018,13 +2032,33 @@ def phase_lowrank(torch, rt, report, launches):
     row["refactor_ms"] = statistics.median(
         event_ms(torch, lambda: torch.linalg.cholesky_ex(A)) for _ in range(3))
     row["chain_us_per_column"] = row["ms"] * 1e3 / d
+    # the chain alone: the least time the kernel's n dependent columns take
+    row["chain_ms"] = device_ms(torch, lambda: CU.chain(d, "cuda"), [()])
+    row["ms_over_chain"] = row["ms"] / row["chain_ms"]
+    row["ms_over_bound"] = row["ms"] / row["bound_ms"]
+    # one call as the init's split times it: the host clock between two
+    # synchronisations, so the wrapper's clone of L (a 268 MB copy), its
+    # scratch allocations and fills and the launches count beside the
+    # kernel
+    row["host_call_ms"] = statistics.median(
+        sync_time(torch, lambda: CU.chol_update(L, V, alpha))[1] * 1e3
+        for _ in range(5))
+    row["clone_ms"] = statistics.median(
+        event_ms(torch, lambda: L.clone()) for _ in range(5))
+    row["event_call_ms"] = statistics.median(
+        event_ms(torch, lambda: CU.chol_update(L, V, alpha))
+        for _ in range(5))
     del got, want, A
     log(f"chol_update at d={d}, rank {r}: {row['ms']:.4f} ms on the card "
         f"({row['chain_us_per_column']:.3f} us a column), plain loop "
         f"{row['plain_ms']:.1f} ms, cholesky of the updated matrix "
         f"{row['refactor_ms']:.3f} ms; bound {row['bound_ms']:.5f} ms by "
-        f"{row['bound_by']}; max |err| {err:.3e} x max |L| {scale:.3e} "
-        f"(bit-equal: {row['bit_equal_d8192']})")
+        f"{row['bound_by']} ({row['ms_over_bound']:.1f}x), the chain alone "
+        f"{row['chain_ms']:.4f} ms ({row['ms_over_chain']:.2f}x); one call "
+        f"by the host clock {row['host_call_ms']:.3f} ms, by CUDA events "
+        f"{row['event_call_ms']:.3f} ms, of which the clone of L "
+        f"{row['clone_ms']:.3f} ms; max |err| {err:.3e} x max |L| "
+        f"{scale:.3e} (bit-equal: {row['bit_equal_d8192']})")
 
     # 3. the main path's init at d = 8192, its time split
     n = problem.num_workers
@@ -2034,9 +2068,15 @@ def phase_lowrank(torch, rt, report, launches):
                              f"{init_row['launches']}")
     check_finite(torch, init)
     init_row["loop_fold_s"] = plain_s
+    init_row["chol_update_s_per_call"] = init_row["chol_update_s"] / (n - 1)
     log(f"lowrank_init N={n} d={d} rank {r}: init {init_row['init_s']:.2f} "
         f"s = {init_row['eigh_s']:.2f} s in {n - 1} eigh + "
-        f"{init_row['chol_update_s']:.3f} s in {n - 1} chol_update calls + "
+        f"{init_row['chol_update_s']:.3f} s in {n - 1} chol_update calls "
+        f"({init_row['chol_update_s_per_call'] * 1e3:.3f} ms a call by the "
+        f"host clock, {init_row['chol_update_device_s'] / (n - 1) * 1e3:.3f}"
+        f" ms between CUDA events around it, against "
+        f"{row['host_call_ms']:.3f} ms for one call alone and "
+        f"{row['ms']:.4f} ms for the kernel) + "
         f"{init_row['rest_s']:.2f} s else (one fold through the plain loop "
         f"takes {plain_s:.2f} s; `chip_smoke.py --loop-init` times the "
         f"whole init through the loop)")
@@ -2245,6 +2285,7 @@ def phase_train_grad(torch, report):
     may land one step apart (``BF16_STEP``)."""
     from repro_torch.kernels import LAUNCHES, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv_wkv as wkv
     gen = torch.Generator(device="cuda").manual_seed(4)
     bf16, f32 = torch.bfloat16, torch.float32
     out = {}
@@ -2292,6 +2333,11 @@ def phase_train_grad(torch, report):
                 row[f"body{label}"] = fa.route(dtype, shape[-1])
             row[f"library_ms{label}"] = (
                 library_attention_bwd_ms(torch, sets) if attn else None)
+            if not attn:
+                row[f"forward_ms{label}"] = device_ms(
+                    torch, wkv.rwkv_wkv, [a[:6] for a in sets])
+                row[f"geometry{label}"] = wkv.wkv_bwd_geometry(
+                    shape[-1], dtype)._asdict()
             log(f"{name} at {shape} {dt}"
                 + (f" ({row[f'body{label}']} body)" if attn else "")
                 + f": on the card {row[f'ms{label}']:.5f} ms"
@@ -2300,9 +2346,17 @@ def phase_train_grad(torch, report):
                 + f", plain {row[f'plain_ms{label}']:.5f} ms, library "
                 f"{row[f'library_ms{label}']} ms over {len(sets)} input "
                 f"sets; bound {b_row['bound_ms']:.5f} ms by "
-                f"{b_row['bound_by']} ({nb} B, {fl} flop)")
+                f"{b_row['bound_by']} ({nb} B, {fl} flop)"
+                + ("" if attn else
+                   f"; K4's forward on the same inputs "
+                   f"{row[f'forward_ms{label}']:.5f} ms; geometry "
+                   f"{row[f'geometry{label}']}"))
             del sets
             torch.cuda.empty_cache()
+        if not attn:
+            row["ptxas"] = {k: v for k, v in report.get("build", {}).get(
+                "bwd_ptxas", {}).get(name, {}).items() if "wkv_bwd_kernel" in k}
+            log(f"{name} registers and spills (-Xptxas -v): {row['ptxas']}")
         report[name] = row
 
     # the dispatch on the card: the forward kernel and the backward

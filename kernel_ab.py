@@ -5,7 +5,7 @@ turns.
     python3 kernel_ab.py --kernel NAME [--seeds B] TREE [TREE ...]
 
 NAME is one of flash_attention, rwkv_wkv, region_aggregate, ranl_update,
-flash_attention_bwd, rwkv_wkv_bwd.
+flash_attention_bwd, rwkv_wkv_bwd, chol_update.
 ``--seeds B`` times the aggregation kernels in their seed-batched form,
 (B, N, D) at each shape, as the batch engine launches them (a tree whose
 kernel has no seed axis fails its check).
@@ -37,7 +37,12 @@ the aggregation kernels also get one call with the host's launch
   the plain backward and the backward of ``scaled_dot_product_attention``
   through autograd, timed the same way;
 - rwkv_wkv_bwd: rwkv6-3b's train shape (2, 512, 40, 64) in f32 and bf16,
-  beside the plain backward.
+  beside the plain backward;
+- chol_update (d, r): the low-rank init's fold at d = 8192, rank 4, on
+  the factor of a random SPD matrix: held to the plain loop (within
+  ``CHOL_RTOL`` x max |L|, and whether bit-equal), then timed as
+  ``chip_smoke.py`` times it (CUDA-graph replays), beside the byte bound
+  and, where the tree has it, the chain alone (``chol_update.chain``).
 
 Prints the card's name and power limit, then one line per (run, shape).
 Needs a CUDA card.
@@ -63,6 +68,7 @@ SHAPES = {
                             ((4, 1024, 24, 8, 128), "float32")),
     "rwkv_wkv_bwd": (((2, 512, 40, 64), "float32"),
                      ((2, 512, 40, 64), "bfloat16")),
+    "chol_update": ((8192, 4),),
 }
 RUN_TIMEOUT_S = 300
 
@@ -173,6 +179,36 @@ def time_backward(C, torch, tree, gen, name):
         torch.cuda.empty_cache()
 
 
+def time_chol(C, torch, tree, gen):
+    """chol_update at each (d, r): against the plain loop once, then
+    timed; the chain alone where the tree has it."""
+    from repro_torch.kernels import chol_update as CU
+    from repro_torch.kernels import ref
+    for d, r in SHAPES["chol_update"]:
+        X = torch.randn(d, d, device="cuda", generator=gen) / d ** 0.5
+        L = torch.linalg.cholesky(X @ X.mT + torch.eye(d, device="cuda"))
+        L = L.mT.contiguous().mT
+        del X
+        V = torch.randn(r, d, device="cuda", generator=gen) / d ** 0.5
+        alpha = torch.rand(r, device="cuda", generator=gen) * 10.0
+        got = CU.chol_update(L, V, alpha)
+        want = ref.chol_update_ref(L, V, alpha)
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if not err <= C.CHOL_RTOL * scale:
+            raise AssertionError(f"{tree}: chol_update differs from the "
+                                 f"plain loop at {(d, r)}: {err}")
+        ms = C.device_ms(torch, CU.chol_update, [(L, V, alpha)])
+        chain = (C.device_ms(torch, lambda: CU.chain(d, "cuda"), [()])
+                 if hasattr(CU, "chain") else None)
+        b = C.chol_bound(d, r)
+        print(f"{tree} {(d, r)}: {ms:.5f} ms (bound {b['bound_ms']:.5f} ms "
+              f"by {b['bound_by']}; chain alone {chain} ms); bit-equal to "
+              f"the loop: {bool(torch.equal(got, want))}", flush=True)
+        del L, V, got, want
+        torch.cuda.empty_cache()
+
+
 def run_one(kernel: str, tree: str, seeds=None):
     """Build, check and time the kernel of one tree (in this process)."""
     import chip_smoke as C            # timing helpers of this checkout
@@ -187,6 +223,8 @@ def run_one(kernel: str, tree: str, seeds=None):
         time_wkv(C, torch, tree, gen)
     elif kernel.endswith("_bwd"):
         time_backward(C, torch, tree, gen, kernel)
+    elif kernel == "chol_update":
+        time_chol(C, torch, tree, gen)
     else:
         time_aggregate(C, torch, tree, gen, kernel, seeds)
 

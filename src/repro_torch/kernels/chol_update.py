@@ -43,6 +43,49 @@ def _entry():
     return fn
 
 
+@functools.cache
+def _chain_entry():
+    fn = build.library("chol_update").chol_chain_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def chain(n: int, device) -> torch.Tensor:
+    """Launch ``chol_chain_kernel`` on the current stream: the dependent
+    path of one column (a diagonal rotation feeding one application) n
+    times over in one thread, the least time the update's chain of n
+    columns can take.  A measurement, not part of the update: it counts
+    no launch.  Returns the (1,) tensor it writes."""
+    out = torch.empty(1, dtype=torch.float32, device=device)
+    with torch.cuda.device(out.device):
+        code = _chain_entry()(n, out.data_ptr(),
+                              build.stream_handle(out.device))
+    build.check_launch(code, "chol_chain")
+    return out
+
+
+@functools.cache
+def _div_check_entry():
+    fn = build.library("chol_update").chol_div_check_launch
+    fn.argtypes = [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def div_check(n: int, seed: int, device) -> int:
+    """How many of n operand pairs (made on the card from ``seed``, over
+    the range the kernel's branch-free division takes) that division
+    rounds apart from ``__fdiv_rn`` in any bit (synchronises)."""
+    out = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(out.device):
+        code = _div_check_entry()(n, seed, out.data_ptr(),
+                                  build.stream_handle(out.device))
+    build.check_launch(code, "chol_div_check")
+    return int(out.item())
+
+
 def _check(L, V, alpha):
     if L.device.type != "cuda":
         raise ValueError(f"the kernel takes CUDA tensors, got {L.device}")

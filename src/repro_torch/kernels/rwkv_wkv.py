@@ -42,7 +42,15 @@ TILES = ((8, 2), (4, 2))
 WARPS_PER_BLOCK = (4, 2, 1)
 WARPS_PER_SM = 8        # resident warps per SM the geometry aims for
 BALANCE = 1.25          # busiest SM's warps against the average, at most
-CHUNK = 64              # the backward's steps between checkpoints
+# the backward (``csrc/rwkv_wkv_bwd.cu``): a lane holds BWD_LANE_COLS
+# columns of a state row; a (b, h)'s rows are spread over a thread-block
+# cluster of at most BWD_MAX_CLUSTER blocks of about BWD_THREADS threads;
+# a chunk's states fill at most BWD_STATE_BYTES of a block's shared memory
+BWD_LANE_COLS = 8
+BWD_THREADS = 128
+BWD_MAX_CLUSTER = 8
+BWD_STATE_BYTES = 32768
+BWD_MAX_CHUNK = 64
 
 
 class Geometry(NamedTuple):
@@ -99,6 +107,57 @@ def launch_geometry(B: int, H: int, hd: int, num_sms: int) -> Geometry:
             break
     bph = wph // warps
     return Geometry(rows, cols, lanes, 32 // lanes, warps, bph, B * H * bph)
+
+
+class BwdGeometry(NamedTuple):
+    cols: int               # state columns a lane holds
+    cluster: int            # blocks per (b, h): one thread-block cluster
+    rows: int               # state rows per block: hd // cluster
+    lanes: int              # lanes per state row: hd // cols
+    threads: int            # threads per block: rows * lanes
+    chunk: int              # steps between checkpoints, rebuilt at once
+    smem: int               # dynamic shared memory per block, bytes
+
+    def rows_of(self, block: int) -> range:
+        """The state rows (and the dv columns) block ``block`` of a
+        cluster owns."""
+        return range(block * self.rows, (block + 1) * self.rows)
+
+    def checkpoints(self, B: int, S: int, H: int) -> tuple:
+        """The shape of the f32 checkpoint scratch the wrapper allocates."""
+        hd = self.lanes * self.cols
+        return (B, H, -(-S // self.chunk), hd, hd)
+
+
+def wkv_bwd_geometry(hd: int, dtype) -> BwdGeometry:
+    """The backward kernel's launch geometry for head dim ``hd`` and r's
+    type: a lane holds ``BWD_LANE_COLS`` columns of a state row (fewer
+    where a row would have under 4 lanes); each (b, h)'s rows go to a
+    cluster of ``hd * lanes / BWD_THREADS`` blocks (at least 1, at most
+    ``BWD_MAX_CLUSTER``); the chunk is the largest power of two up to
+    ``BWD_MAX_CHUNK`` whose states of a block's rows fit
+    ``BWD_STATE_BYTES``.  ``smem`` is the source's ``Geo::SMEM``: the
+    chunk's states, three ring slots of a chunk's inputs (dy and v, a
+    block's rows of w, r and k), and twice (by chunk parity) the warps'
+    and the block's dv sums of a chunk and its rows' dr, dk and dw."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"r must be float32 or bfloat16, got {dtype}")
+    es = dtype.itemsize
+    cols = min(BWD_LANE_COLS, hd // 4)
+    lanes = hd // cols
+    cluster = min(BWD_MAX_CLUSTER, max(1, hd * lanes // BWD_THREADS))
+    rows = hd // cluster
+    chunk = BWD_MAX_CHUNK
+    while chunk > 1 and chunk * rows * hd * 4 > BWD_STATE_BYTES:
+        chunk //= 2
+    threads = rows * lanes
+    warps = threads // 32
+    slot = chunk * hd * (4 + es) + chunk * rows * (4 + 2 * es)
+    by_parity = chunk * warps * hd * 4 + chunk * hd * 4 + chunk * rows * 16
+    smem = chunk * rows * hd * 4 + 3 * slot + 2 * by_parity
+    return BwdGeometry(cols, cluster, rows, lanes, threads, chunk, smem)
 
 
 @functools.cache
@@ -191,7 +250,7 @@ def rwkv_wkv(r, k, v, w, u, state):
 @functools.cache
 def _bwd_entry():
     fn = build.library("rwkv_wkv_bwd").rwkv_wkv_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
                    + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -201,6 +260,16 @@ def _packed(t):
     """``t`` contiguous at a 16-byte-aligned address (copied if not)."""
     t = t.contiguous()
     return t if t.data_ptr() % COPY_ALIGN == 0 else t.clone()
+
+
+def bwd_scratch(geo: BwdGeometry, B: int, S: int, H: int, device):
+    """The backward kernel's f32 scratch: the checkpoints, (B, H,
+    ceil(S / chunk), hd, hd), and du's partial sums a (b, h), (B, H,
+    hd)."""
+    ckpt = torch.empty(geo.checkpoints(B, S, H), dtype=torch.float32,
+                       device=device)
+    hd = geo.lanes * geo.cols
+    return ckpt, torch.empty((B, H, hd), dtype=torch.float32, device=device)
 
 
 def rwkv_wkv_bwd(r, k, v, w, u, state, dy, ds):
@@ -227,14 +296,14 @@ def rwkv_wkv_bwd(r, k, v, w, u, state, dy, ds):
     dw = torch.empty((B, S, H, hd), dtype=torch.float32, device=dev)
     du = torch.empty((H, hd), dtype=r.dtype, device=dev)
     dstate = torch.empty_like(state)
-    ckpt = torch.empty((B, H, -(-S // CHUNK), hd, hd), dtype=torch.float32,
-                       device=dev)
-    du_part = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
+    geo = wkv_bwd_geometry(hd, r.dtype)
+    ckpt, du_part = bwd_scratch(geo, B, S, H, dev)
     with torch.cuda.device(dev):
         code = _bwd_entry()(
             *(t.data_ptr() for t in (r, k, v, w, u, state, dy, ds, dr, dk,
                                      dv, dw, du, dstate, ckpt, du_part)),
-            B, S, H, hd, _DTYPES[r.dtype],
+            B, S, H, hd, _DTYPES[r.dtype], geo.cols, geo.cluster, geo.chunk,
+            geo.smem,
             *(t.stride(i) for t in (r, k, v, w) for i in (0, 1, 2)),
             build.stream_handle(dev))
     build.check_launch(code, "rwkv_wkv_bwd")

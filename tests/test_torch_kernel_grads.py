@@ -563,6 +563,66 @@ def test_functions_refuse_meta_tensors():
 
 
 # --------------------------------------------------------------------------
+# K4's backward: its launch geometry (``wkv_bwd_geometry``)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_wkv_bwd_geometry_owns_each_state_row_once(hd, dtype):
+    """The cluster size divides hd, and its blocks' rows cover each state
+    row (and each dv column) exactly once; a block's lanes hold whole rows
+    in whole warps."""
+    geo = WKV.wkv_bwd_geometry(hd, dtype)
+    assert hd % geo.cluster == 0 and 1 <= geo.cluster <= WKV.BWD_MAX_CLUSTER
+    owned = [i for g in range(geo.cluster) for i in geo.rows_of(g)]
+    assert sorted(owned) == list(range(hd))
+    assert geo.lanes * geo.cols == hd and 4 <= geo.lanes <= 32
+    assert geo.cols % 4 == 0
+    assert geo.threads == geo.rows * geo.lanes and geo.threads % 32 == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_wkv_bwd_geometry_fits_a_chunk_in_shared_memory(hd, dtype):
+    """A chunk's states of a block's rows fit the shared memory the
+    geometry reserves, beside three ring slots of the chunk's inputs and
+    the dv sums; the block fits the card's 227 KB, and at hd 64 three
+    blocks fit an SM (the train shape's 320 blocks in one wave on 132
+    SMs)."""
+    geo = WKV.wkv_bwd_geometry(hd, dtype)
+    es = 2 if dtype == torch.bfloat16 else 4
+    states = geo.chunk * geo.rows * hd * 4
+    assert states <= WKV.BWD_STATE_BYTES
+    inputs = 3 * geo.chunk * (hd * (4 + es) + geo.rows * (4 + 2 * es))
+    assert geo.smem >= states + inputs
+    assert geo.smem <= 232448
+    assert geo.chunk & (geo.chunk - 1) == 0
+    if hd == 64:
+        assert (geo.cluster, geo.rows, geo.chunk) == (4, 16, 8)
+        assert 3 * (geo.smem + 1024) <= 233472
+        assert 3 * 132 >= 2 * 40 * geo.cluster
+
+
+@pytest.mark.parametrize("s", [1, 8, 9, 200])
+@pytest.mark.parametrize("hd", [16, 64, 128])
+def test_wkv_bwd_scratch_has_the_kernel_shape(hd, s):
+    """The checkpoints the wrapper allocates: one state every chunk
+    steps, (B, H, ceil(S / chunk), hd, hd) f32, and du's (B, H, hd)."""
+    geo = WKV.wkv_bwd_geometry(hd, torch.float32)
+    ckpt, du_part = WKV.bwd_scratch(geo, 2, s, 3, "meta")
+    assert tuple(ckpt.shape) == (2, 3, -(-s // geo.chunk), hd, hd)
+    assert ckpt.dtype == du_part.dtype == torch.float32
+    assert tuple(du_part.shape) == (2, 3, hd)
+
+
+def test_wkv_bwd_geometry_refuses_what_no_instance_takes():
+    with pytest.raises(ValueError, match="head dim"):
+        WKV.wkv_bwd_geometry(96, torch.float32)
+    with pytest.raises(TypeError):
+        WKV.wkv_bwd_geometry(64, torch.float16)
+
+
+# --------------------------------------------------------------------------
 # on a card: the backward kernels against the plain backwards
 # --------------------------------------------------------------------------
 
@@ -670,6 +730,33 @@ def test_wkv_backward_kernel_equals_plain_on_card(cuda, case, dtype, tol):
     torch.cuda.synchronize()
     assert LAUNCHES["rwkv_wkv_bwd"] == before + 2
     want = ref.rwkv_wkv_bwd_ref(*inputs, dy, ds)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a) and g.dtype == w.dtype
+        _close(_np(g.cpu()), _np(w.cpu()), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, BF16_STEP)])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("s", [1, 15, 17, 64, 65, 200])
+def test_wkv_backward_kernel_over_chunk_edges_on_card(cuda, s, hd, dtype,
+                                                      tol):
+    """T on and off the checkpoint interval (8 at hd 32/64, 32 at hd 16,
+    4 at hd 128), every head dim and its cluster, a non-zero state and ds,
+    r a strided view (one half of a wider projection): against the plain
+    backward, and two calls bit-equal."""
+    arrays = _wkv_arrays(2, s, 3, hd, seed=hd)
+    *inputs, dy, ds = (t.to(cuda) for t in _wkv_torch(arrays, dtype))
+    wide = torch.cat([torch.zeros_like(inputs[0]), inputs[0]], dim=-1)
+    inputs[0] = wide[..., hd:]
+    assert not inputs[0].is_contiguous()
+    before = LAUNCHES["rwkv_wkv_bwd"]
+    got = WKV.rwkv_wkv_bwd(*inputs, dy, ds)
+    again = WKV.rwkv_wkv_bwd(*inputs, dy, ds)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rwkv_wkv_bwd"] == before + 2
+    want = ref.rwkv_wkv_bwd_ref(inputs[0].contiguous(), *inputs[1:], dy, ds)
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a) and g.dtype == w.dtype
         _close(_np(g.cpu()), _np(w.cpu()), tol)

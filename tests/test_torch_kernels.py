@@ -891,6 +891,80 @@ def test_chol_update_kernel_matches_plain_on_card(cuda, n, r):
             CU.chol_update(L.contiguous(), V, alpha)
 
 
+def _chol_card(n, r, seed, cuda):
+    """``_chol_inputs`` on the card, L's strict upper triangle filled with
+    values the update must carry over as they are."""
+    L, V, alpha = _chol_inputs(n, r, seed=seed)
+    junk = torch.triu(torch.tensor(np.random.default_rng(seed).normal(
+        size=(n, n)).astype(np.float32)), 1)
+    L = (L + junk).mT.contiguous().mT
+    return L.to(cuda), V.to(cuda), alpha.to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [1, 4, 8])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 127, 128, 129, 300, 1000])
+def test_chol_update_kernel_is_bit_equal_to_plain_on_card(cuda, n, r):
+    """Panels of 32 columns, blocks of 128 rows and the rank wavefront:
+    every element goes through the plain loop's IEEE operations in its
+    order, so the factor is bit for bit the loop's, in one launch, with
+    L's strict upper triangle carried over and the layout kept."""
+    from repro_torch.kernels import chol_update as CU
+    L, V, alpha = _chol_card(n, r, 7 * n + r, cuda)
+    before = LAUNCHES["chol_update"]
+    got = CU.chol_update(L, V, alpha)
+    assert LAUNCHES["chol_update"] == before + 1
+    want = ref.chol_update_ref(L, V, alpha)
+    torch.cuda.synchronize()
+    assert got.stride() == L.stride()
+    assert torch.equal(got, want)
+    assert torch.equal(torch.triu(got, 1), torch.triu(L, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [1, 2])
+def test_chol_update_division_rounds_as_fdiv_rn_on_card(cuda, seed):
+    """The kernel's branch-free division (div.rn.f32's fast path) gives
+    __fdiv_rn's bits on 2^28 operand pairs over its whole range, signed
+    zero numerators among them."""
+    from repro_torch.kernels import chol_update as CU
+    assert CU.div_check(1 << 28, seed, cuda) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,r", [(33, 9), (300, 9), (129, 17)])
+def test_chol_update_kernel_takes_more_vectors_in_more_launches_on_card(
+        cuda, n, r):
+    """One launch per 8 vectors, each on the last one's factor:
+    bit-equal to the loop over all r."""
+    from repro_torch.kernels import chol_update as CU
+    L, V, alpha = _chol_card(n, r, n + r, cuda)
+    before = LAUNCHES["chol_update"]
+    got = CU.chol_update(L, V, alpha)
+    assert LAUNCHES["chol_update"] == before + -(-r // CU.MAX_RANK)
+    want = ref.chol_update_ref(L, V, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(torch.triu(got, 1), torch.triu(L, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [32, 200])
+def test_chol_update_kernel_skips_zero_and_negative_alpha_on_card(cuda, n):
+    """alpha is clamped at 0, and a vector of weight 0 is an exact
+    identity (c = 1, s = 0): the update with a zero and a negative alpha
+    is bit-equal to the loop and to the update by the other vectors."""
+    from repro_torch.kernels import chol_update as CU
+    L, V, _ = _chol_card(n, 4, n, cuda)
+    alpha = torch.tensor([0.7, 0.0, -1.3, 2.0], device=cuda)
+    got = CU.chol_update(L, V, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.chol_update_ref(L, V, alpha))
+    keep = torch.tensor([0, 3], device=cuda)
+    assert torch.equal(got, CU.chol_update(L, V[keep].contiguous(),
+                                           alpha[keep].contiguous()))
+
+
 # --------------------------------------------------------------------------
 # hierarchical pod rounds: K1/K2 on B·P rows of N/P workers
 # --------------------------------------------------------------------------
