@@ -3363,8 +3363,10 @@ def phase_train_cli(torch, report):
     quorum, then AdamW with a checkpoint, restored bit-equal to the
     trained params; both with --journal and --trace: each journal valid,
     one round a step, an ``execute`` span a step timed on the card (and
-    the ``checkpoint`` span), rendered by the report CLI, and the Chrome
-    trace holding the same spans."""
+    the ``checkpoint`` span), the round's own spans inside each (RANL: a
+    ``ranl.round`` a step; both: a ``forward`` and a ``backward`` a
+    worker), rendered by the report CLI, and the Chrome trace holding the
+    same spans."""
     import io
     from repro_torch.checkpoint import restore
     from repro_torch.launch import train as cli
@@ -3407,15 +3409,20 @@ def phase_train_cli(torch, report):
         problems = validate_journal(records)
         spans = [r for r in records if r["kind"] == "span"]
         rounds = [r for r in records if r["kind"] == "round"]
+        names = [s["name"] for s in spans]
+        inner_want = ({"ranl.round": 4} if label.startswith("ranl")
+                      else {"forward": 4, "backward": 4})
         if problems or len(rounds) != 4 or [
-                s["name"] for s in spans] != spans_want or not all(
+                n for n in names if n in ("execute", "checkpoint")
+        ] != spans_want or any(names.count(n) != k for n, k in
+                               inner_want.items()) or not all(
                 "device_s" in s for s in spans) or not all(
                 s["device_s"] > 0.0 for s in spans
                 if s["name"] == "execute"):
             raise AssertionError(f"train_cli {label}: journal {problems}, "
-                                 f"{len(rounds)} rounds, spans {spans}")
+                                 f"{len(rounds)} rounds, spans {names}")
         trace = json.load(open(tpath))
-        if [e["name"] for e in trace["traceEvents"]] != spans_want:
+        if [e["name"] for e in trace["traceEvents"]] != names:
             raise AssertionError(f"train_cli {label}: trace {trace}")
         rendered = subprocess.run(
             [sys.executable, "-m", "repro_torch.obs.report", jpath],

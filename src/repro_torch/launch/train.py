@@ -17,7 +17,11 @@ allocation follow the reference's draws.  ``--journal PATH`` writes the
 reference's run-journal schema (a header, one ``round`` record a step,
 the spans, a summary; ``python -m repro_torch.obs.report PATH`` renders
 it) and ``--trace PATH`` a Chrome trace of ``execute`` spans (one a
-step, timed by CUDA events on the card) and the ``checkpoint`` span.
+step, timed by CUDA events on the card), the round's own spans inside
+each (``optim.ranl_llm.train_step``: the workers' forwards and
+backwards, the aggregate and its memory codec, the Newton step, the
+exchange) and the ``checkpoint`` span: the tracer is active over the
+steps.
 The port runs eagerly, so it has no ``lower``/``compile`` spans and no
 compiled HLO for ``--dump-hlo`` to write.
 
@@ -55,7 +59,7 @@ from ..configs import get_config, smoke_variant
 from ..data import make_batch
 from ..device import resolve_device
 from ..models import init_model, lm_loss
-from ..obs import Journal, Tracer, make_header
+from ..obs import Journal, Tracer, count, make_header, span, tracing
 from ..optim import (AdamWConfig, RanlLLMConfig, adamw_init, adamw_step,
                      gather_tree, init_state, shard_params, train_step)
 from ..optim.first_order import value_and_grad
@@ -316,10 +320,6 @@ def run(argv=None):
     journal = Journal(args.journal) if args.journal and main else None
     tracer = Tracer() if args.trace and main else None
 
-    def tspan(name, **meta):
-        return (tracer.span(name, device=device, **meta)
-                if tracer is not None else nullcontext())
-
     def header(engine, options, scenario=None, **extra):
         return make_header(engine=engine, options=options, mesh=mesh,
                            scenario=scenario,
@@ -349,58 +349,68 @@ def run(argv=None):
                                  scenario=args.scenario or None,
                                  controller=args.controller or None,
                                  quorum=args.quorum or None))
-        for t in range(args.steps):
-            batch = next_batch()
-            masks = None if hetero is None else hetero.masks(ko, t)
-            t0 = time.perf_counter()
-            with tspan("execute", step=t):
-                params, state, metrics = train_step(
-                    params, state, batch, ko, loss_fn=loss_fn, cfg=rcfg,
-                    masks=masks, **on_mesh)
-            sim_note = "" if hetero is None else hetero.observe(masks, t)
-            if (journal is not None or t % args.log_every == 0
-                    or t == args.steps - 1):
-                metrics = {k: float(v) for k, v in metrics.items()}
-                metrics["step_s"] = time.perf_counter() - t0
-                if hetero is not None:
-                    metrics["sim_round_s"] = hetero.sim_round_s
-                    metrics["sim_s"] = hetero.sim_s
-                    metrics["max_stale"] = hetero.max_stale
-                history.append(metrics)
-                if journal is not None:
-                    journal.write({"kind": "round", "t": t + 1, **metrics})
-                if t % args.log_every == 0:
-                    say(f"step {t:4d} loss={metrics['loss']:.4f} "
-                          f"cov={metrics['coverage']:.2f} "
-                          f"uplink={metrics['uplink_frac']:.2f} "
-                          f"({metrics['step_s']:.2f}s){sim_note}")
     else:
         acfg = AdamWConfig(lr=1e-3)
         state = adamw_init(params, acfg)
         if journal is not None:
             journal.write(header("train:adamw", acfg))
-        for t in range(args.steps):
-            batch = next_batch()
-            with tspan("execute", step=t):
-                loss, grads = value_and_grad(loss_fn, params, batch)
-                params, state = adamw_step(params, state, grads, acfg)
-            del grads
-            if (journal is not None or t % args.log_every == 0
-                    or t == args.steps - 1):
-                rec = {"loss": float(loss)}
-                history.append(rec)
-                if journal is not None:
-                    journal.write({"kind": "round", "t": t + 1, **rec})
-                if t % args.log_every == 0:
-                    say(f"step {t:4d} loss={rec['loss']:.4f}")
-
-    if args.checkpoint_dir and on_mesh:
-        params = gather_tree(params, **on_mesh)
-    if args.checkpoint_dir and main:
-        _sync(device)
-        with tspan("checkpoint"):
-            save(params, args.checkpoint_dir, step=args.steps)
-        say(f"saved checkpoint to {args.checkpoint_dir}")
+    # the round's own spans and its host_syncs counter land in --trace
+    with tracing(tracer) if tracer is not None else nullcontext():
+        if args.optimizer == "ranl":
+            for t in range(args.steps):
+                batch = next_batch()
+                masks = None if hetero is None else hetero.masks(ko, t)
+                t0 = time.perf_counter()
+                with span("execute", device=device, step=t):
+                    params, state, metrics = train_step(
+                        params, state, batch, ko, loss_fn=loss_fn,
+                        cfg=rcfg, masks=masks, **on_mesh)
+                sim_note = ("" if hetero is None
+                            else hetero.observe(masks, t))
+                if (journal is not None or t % args.log_every == 0
+                        or t == args.steps - 1):
+                    # one wait for every metric
+                    vals = torch.stack([v.double()
+                                        for v in metrics.values()])
+                    count("host_syncs")
+                    metrics = dict(zip(metrics, vals.tolist()))
+                    metrics["step_s"] = time.perf_counter() - t0
+                    if hetero is not None:
+                        metrics["sim_round_s"] = hetero.sim_round_s
+                        metrics["sim_s"] = hetero.sim_s
+                        metrics["max_stale"] = hetero.max_stale
+                    history.append(metrics)
+                    if journal is not None:
+                        journal.write({"kind": "round", "t": t + 1,
+                                       **metrics})
+                    if t % args.log_every == 0:
+                        say(f"step {t:4d} loss={metrics['loss']:.4f} "
+                            f"cov={metrics['coverage']:.2f} "
+                            f"uplink={metrics['uplink_frac']:.2f} "
+                            f"({metrics['step_s']:.2f}s){sim_note}")
+        else:
+            for t in range(args.steps):
+                batch = next_batch()
+                with span("execute", device=device, step=t):
+                    loss, grads = value_and_grad(loss_fn, params, batch)
+                    params, state = adamw_step(params, state, grads, acfg)
+                del grads
+                if (journal is not None or t % args.log_every == 0
+                        or t == args.steps - 1):
+                    count("host_syncs")
+                    rec = {"loss": float(loss)}
+                    history.append(rec)
+                    if journal is not None:
+                        journal.write({"kind": "round", "t": t + 1, **rec})
+                    if t % args.log_every == 0:
+                        say(f"step {t:4d} loss={rec['loss']:.4f}")
+        if args.checkpoint_dir and on_mesh:
+            params = gather_tree(params, **on_mesh)
+        if args.checkpoint_dir and main:
+            _sync(device)
+            with span("checkpoint", device=device):
+                save(params, args.checkpoint_dir, step=args.steps)
+            say(f"saved checkpoint to {args.checkpoint_dir}")
     if journal is not None:
         if tracer is not None:
             for srec in tracer.span_records():

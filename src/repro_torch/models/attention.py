@@ -18,6 +18,7 @@ import math
 import torch
 
 from ..kernels import ops
+from ..obs.trace import count
 from .common import apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
@@ -149,6 +150,7 @@ def apply_attention(params, x, cfg, positions, *, cache=None, pos=None,
             q_chunk=q_chunk, kv_chunk=kv_chunk, static_positions=False)
     else:
         arange = torch.arange(S, device=positions.device)
+        count("host_syncs")     # torch.equal waits for the card
         if not torch.equal(positions, arange.expand(B, S).to(positions.dtype)):
             raise ValueError("without a cache, positions must be arange(S)")
         out = ops.flash_attention(q, k, v, causal=True, window=window)

@@ -4,24 +4,32 @@ The engines' simulated clock (``hetero.cost``) prices the *modeled*
 cluster; this module meters the run itself, as explicit ``with
 span("execute"): ...`` blocks collected by a :class:`Tracer`.
 
-Zero-cost by default: ``span`` is a no-op ``nullcontext`` unless a
-tracer has been activated (``with tracing() as tr:`` or
-``push_tracer``), so the hooks in ``repro_torch.run`` and the train CLI
-launch nothing and never synchronise in an untraced run.  Spans touch no
-tensor of the run, so a traced run is bit for bit an untraced one.
+Zero-cost by default: ``span`` and ``count`` are no-ops unless a tracer
+has been activated (``with tracing() as tr:``), so the hooks in
+``repro_torch.run``, in the RANL round (``optim.ranl_llm``) and in the
+train CLI launch nothing and never synchronise in an untraced run.
+Spans and counters touch no tensor of the run, so a traced run is bit
+for bit an untraced one.
 
 Each span keeps ``dur``, host ``perf_counter`` seconds, as the
-reference's do.  A span given a CUDA ``device`` also records a
+reference's do, and its start and end in ns on the torch profiler's
+clock (``start_ns``/``end_ns``: ``perf_counter_ns`` plus one offset to
+``time.time_ns``, taken when the tracer is made; the profiler's Chrome
+export puts an event at ``baseTimeNanoseconds + 1000·ts``), so a span
+can be laid over a ``torch.profiler`` trace of the same run.  A span
+given a CUDA ``device`` also records a
 ``torch.cuda.Event(enable_timing=True)`` pair on that device's current
 stream; the elapsed time between them, ``device_s``, is resolved when
 the records are read (``span_records``, ``chrome_trace``, ``totals``),
 after one synchronise, never inside the run.  A CPU span has no
-``device_s``.
+``device_s``.  ``count(name, n)`` adds to the tracer's counter ``name``
+(``Tracer.metrics``, an ``obs.metrics.MetricsRegistry``).
 
 Exports:
 
 * ``Tracer.chrome_trace()`` / ``Tracer.write_chrome(path)`` — the
-  Chrome-trace ("Perfetto"/``chrome://tracing``) JSON event form;
+  Chrome-trace ("Perfetto"/``chrome://tracing``) JSON event form, on
+  the profiler's clock (it lines up with a ``torch.profiler`` trace);
 * ``Tracer.span_records()`` — the journal form (``kind="span"``
   records, appended by ``obs.journal.write_run_journal``);
 * ``torch_profiler(log_dir)`` — ``torch.profiler`` over the CPU and the
@@ -35,11 +43,13 @@ import dataclasses
 import json
 import os
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 
-__all__ = ["SpanRecord", "Tracer", "tracing", "span", "current_tracer",
-           "push_tracer", "pop_tracer", "torch_profiler", "device_ops"]
+from .metrics import MetricsRegistry
+
+__all__ = ["SpanRecord", "Tracer", "tracing", "span", "count",
+           "current_tracer", "torch_profiler", "device_ops"]
 
 
 @dataclass(frozen=True)
@@ -47,12 +57,21 @@ class SpanRecord:
     """One closed span: ``t0``/``dur`` are host ``perf_counter`` seconds
     (``t0`` relative to the tracer's epoch); ``device_s`` the seconds the
     card's stream took between the span's CUDA events (None on the CPU,
-    and until the tracer resolves it)."""
+    and until the tracer resolves it); ``start_ns``/``end_ns`` the host
+    interval in ns on the torch profiler's clock."""
     name: str
     t0: float
     dur: float
     meta: tuple[tuple[str, object], ...] = ()
     device_s: float | None = None
+    start_ns: int | None = None
+    end_ns: int | None = None
+
+
+def _profiler_offset_ns() -> int:
+    """What turns a ``perf_counter_ns`` stamp into the torch profiler's
+    clock: ns since the Unix epoch, ``time.time_ns``'s."""
+    return time.time_ns() - time.perf_counter_ns()
 
 
 def _cuda_device(device):
@@ -78,26 +97,33 @@ class Tracer:
     """Collects :class:`SpanRecord` entries; reentrant and nestable.
     ``spans`` holds them in close order; read them through
     ``span_records``/``chrome_trace``/``totals`` (or call ``resolve``
-    first) to have the CUDA spans' ``device_s``."""
+    first) to have the CUDA spans' ``device_s``.  ``metrics`` holds the
+    counters ``count`` adds to."""
     epoch: float = field(default_factory=time.perf_counter)
     spans: list[SpanRecord] = field(default_factory=list)
+    metrics: MetricsRegistry = field(default_factory=MetricsRegistry)
+    offset_ns: int = field(default_factory=_profiler_offset_ns)
     _events: dict = field(default_factory=dict, repr=False, init=False)
 
     @contextmanager
     def span(self, name: str, *, device=None, **meta):
         dev = _cuda_device(device)
         start = _record_event(dev) if dev is not None else None
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         try:
             yield self
         finally:
-            dur = time.perf_counter() - t0
+            t1 = time.perf_counter_ns()
             if dev is not None:
                 self._events[len(self.spans)] = (dev, start,
                                                  _record_event(dev))
             self.spans.append(SpanRecord(
-                name=str(name), t0=t0 - self.epoch, dur=dur,
-                meta=tuple(sorted(meta.items()))))
+                name=str(name), t0=t0 * 1e-9 - self.epoch,
+                dur=(t1 - t0) * 1e-9, meta=tuple(sorted(meta.items())),
+                start_ns=t0 + self.offset_ns, end_ns=t1 + self.offset_ns))
+
+    def count(self, name: str, n: float = 1) -> None:
+        self.metrics.counter(name).inc(n)
 
     def resolve(self) -> list[SpanRecord]:
         """Fill in ``device_s`` of every closed CUDA span: one
@@ -131,15 +157,18 @@ class Tracer:
 
     def chrome_trace(self) -> dict:
         """Chrome-trace JSON object (open with Perfetto or
-        ``chrome://tracing``): complete ("X") events in microseconds; a
+        ``chrome://tracing``): complete ("X") events in microseconds
+        after ``baseTimeNanoseconds``, the tracer's epoch on the torch
+        profiler's clock, as the profiler's own export writes them; a
         CUDA span carries its ``device_s`` in ``args``."""
-        return {"traceEvents": [
-            {"name": s.name, "ph": "X", "pid": 0, "tid": 0,
-             "ts": s.t0 * 1e6, "dur": s.dur * 1e6,
-             "args": {**dict(s.meta),
-                      **({"device_s": s.device_s}
-                         if s.device_s is not None else {})}}
-            for s in self.resolve()]}
+        events = [{"name": s.name, "ph": "X", "pid": 0, "tid": 0,
+                   "ts": s.t0 * 1e6, "dur": s.dur * 1e6,
+                   "args": {**dict(s.meta),
+                            **({"device_s": s.device_s}
+                               if s.device_s is not None else {})}}
+                  for s in self.resolve()]
+        return {"baseTimeNanoseconds": round(self.epoch * 1e9)
+                + self.offset_ns, "traceEvents": events}
 
     def write_chrome(self, path: str) -> str:
         with open(path, "w") as f:
@@ -156,39 +185,40 @@ def current_tracer() -> Tracer | None:
     return _STACK[-1] if _STACK else None
 
 
-def push_tracer(tracer: Tracer | None = None) -> Tracer:
-    tracer = tracer or Tracer()
-    _STACK.append(tracer)
-    return tracer
-
-
-def pop_tracer() -> Tracer:
-    return _STACK.pop()
-
-
 @contextmanager
 def tracing(tracer: Tracer | None = None):
-    """Activate a tracer for the block: every ``span(...)`` inside
-    (including the hook inside ``repro_torch.run``) records into it.
-    Yields the :class:`Tracer`."""
-    t = push_tracer(tracer)
+    """Activate a tracer for the block: every ``span(...)`` and
+    ``count(...)`` inside (the hooks in ``repro_torch.run`` and in the
+    RANL round among them) records into it.  Yields the
+    :class:`Tracer`."""
+    t = tracer or Tracer()
+    _STACK.append(t)
     try:
         yield t
     finally:
-        pop_tracer()
+        _STACK.pop()
 
 
-@contextmanager
+_NO_SPAN = nullcontext()
+
+
 def span(name: str, *, device=None, **meta):
     """Record a span on the active tracer — a no-op when none is active
     (the zero-cost default for the hooks in hot paths).  On a CUDA
-    ``device`` the span also times the card's stream."""
+    ``device`` the span also times the card's stream.  ``with span(...)
+    as t`` binds the tracer, or None."""
     t = current_tracer()
     if t is None:
-        yield None
-        return
-    with t.span(name, device=device, **meta):
-        yield t
+        return _NO_SPAN
+    return t.span(name, device=device, **meta)
+
+
+def count(name: str, n: float = 1) -> None:
+    """Add ``n`` to the active tracer's counter ``name`` — a no-op when
+    none is active."""
+    t = current_tracer()
+    if t is not None:
+        t.count(name, n)
 
 
 @contextmanager

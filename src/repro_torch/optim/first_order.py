@@ -12,19 +12,23 @@ from dataclasses import dataclass
 
 import torch
 
+from ..obs.trace import span
 from ..tree import from_leaves, get, leaves, rebuild, tree_map
 
 
 def value_and_grad(loss_fn, params, batch):
     """(loss, grads): ``loss_fn(params, batch)`` and its gradient with
     respect to every leaf of ``params`` (zeros for a leaf the loss does
-    not reach, as the reference's gradient has)."""
+    not reach, as the reference's gradient has).  Under an active tracer
+    the two passes are the spans ``forward`` and ``backward``."""
     live = rebuild(params, lambda keys, layer:
                    get(params, keys, layer).detach().requires_grad_(True))
     wrt = leaves(live)
     with torch.enable_grad():
-        loss = loss_fn(live, batch)
-        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+        with span("forward", device=wrt[0].device):
+            loss = loss_fn(live, batch)
+        with span("backward", device=wrt[0].device):
+            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
     return loss.detach(), from_leaves(params, [
         torch.zeros_like(w) if g is None else g for w, g in zip(wrt, grads)])
 

@@ -62,6 +62,7 @@ from .. import prng
 from ..core.collectives import Collectives
 from ..core.masks import PolicyConfig, sample_masks
 from ..launch.shard import BATCH, MODEL, local_shard, model_dim
+from ..obs.trace import count, span
 from ..tree import get, leaf_paths, leaves, num_layers, put, rebuild
 from .first_order import value_and_grad
 
@@ -217,17 +218,19 @@ def per_worker_grads(loss_fn, params, batch, num_workers: int, *,
                                       _Mesh(mesh, params, coll, pspecs,
                                             num_workers))
     wb = split_batch(batch, num_workers)
+    device = leaves(params)[0].device
     G, losses = None, []
     for i in range(num_workers):
-        loss, grads = value_and_grad(loss_fn, params,
-                                     {k: v[i] for k, v in wb.items()})
-        if G is None:
-            G = rebuild(params, lambda keys, layer: torch.empty(
-                (num_workers,) + tuple(get(grads, keys, layer).shape),
-                dtype=get(grads, keys, layer).dtype,
-                device=get(grads, keys, layer).device))
-        for out, g in zip(leaves(G), leaves(grads)):
-            out[i].copy_(g)
+        with span("ranl.worker_pass", device=device, worker=i):
+            loss, grads = value_and_grad(loss_fn, params,
+                                         {k: v[i] for k, v in wb.items()})
+            if G is None:
+                G = rebuild(params, lambda keys, layer: torch.empty(
+                    (num_workers,) + tuple(get(grads, keys, layer).shape),
+                    dtype=get(grads, keys, layer).dtype,
+                    device=get(grads, keys, layer).device))
+            for out, g in zip(leaves(G), leaves(grads)):
+                out[i].copy_(g)
         losses.append(loss)
         del grads
     return torch.stack(losses), G
@@ -261,15 +264,18 @@ def dequantize_memory(Cq):
 
 
 def _encode_memory(G, cfg, layer: bool):
-    if cfg.memory_int8:
-        return quantize_memory(G, layer=layer)
-    return G.to(getattr(torch, cfg.memory_dtype))
+    with span("ranl.memory_encode", device=G.device):
+        if cfg.memory_int8:
+            return quantize_memory(G, layer=layer)
+        return G.to(getattr(torch, cfg.memory_dtype))
 
 
 def _decode_memory(C, cfg, like_dtype):
-    if cfg.memory_int8:
-        return dequantize_memory(C).to(like_dtype)
-    return C.to(like_dtype)
+    with span("ranl.memory_decode",
+              device=(C["q"] if cfg.memory_int8 else C).device):
+        if cfg.memory_int8:
+            return dequantize_memory(C).to(like_dtype)
+        return C.to(like_dtype)
 
 
 def _sq_mean(G):
@@ -399,31 +405,44 @@ def train_step(params, state, batch, rng, *, loss_fn, cfg: RanlLLMConfig,
     ``pspecs``: ``{"state": launch.shard.ranl_state_pspecs(full params,
     M)}``, needed when the mesh has M > 1 model shards.  ``coll``: the
     ``Collectives`` recorder to log into (a new one when None); the
-    step's collectives are logged as round ``step + 1``."""
+    step's collectives are logged as round ``step + 1``.
+
+    Under an active tracer (``obs.tracing``) the round is the span
+    ``ranl.round``, holding ``ranl.worker_pass`` (each with ``forward``
+    and ``backward``), ``ranl.aggregate`` (with ``ranl.memory_decode``
+    and ``ranl.memory_encode``), ``ranl.newton`` and, on a mesh,
+    ``ranl.exchange``; each place the host waits on the card adds to the
+    counter ``host_syncs``."""
     m = None if mesh is None else _Mesh(mesh, params, coll, pspecs,
                                         cfg.num_workers)
     step, masks = _round_masks(params, state, rng, cfg, masks)
-    if m is not None:
-        return _train_step_mesh(params, state, batch, step, masks,
-                                loss_fn, cfg, m)
-    losses, G = per_worker_grads(loss_fn, params, batch, cfg.num_workers)
-    g, C_new, gsq = aggregate(G, state["memory"], masks, params, cfg)
+    with span("ranl.round", device=masks.device):
+        if m is not None:
+            return _train_step_mesh(params, state, batch, step, masks,
+                                    loss_fn, cfg, m)
+        # through the module's globals, so a caller may wrap each phase
+        losses, G = per_worker_grads(loss_fn, params, batch,
+                                     cfg.num_workers)
+        with span("ranl.aggregate", device=masks.device):
+            g, C_new, gsq = aggregate(G, state["memory"], masks, params,
+                                      cfg)
 
-    precond = state["precond"]
-    if cfg.precond_beta > 0.0:
-        beta = cfg.precond_beta
-        precond = rebuild(precond, lambda keys, layer: (
-            (1.0 - beta) * get(precond, keys, layer)
-            + beta * get(gsq, keys, layer)))
-    new_params = newton_step(params, g, precond, cfg)
-    new_state = {"step": state["step"] + 1, "precond": precond,
-                 "memory": C_new}
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                           for x in leaves(g)))
-    metrics = {"loss": losses.mean(), "grad_norm": gnorm,
-               "coverage": _f32_mean(masks.any(dim=0)),
-               "uplink_frac": _f32_mean(masks)}
-    return new_params, new_state, metrics
+        precond = state["precond"]
+        if cfg.precond_beta > 0.0:
+            beta = cfg.precond_beta
+            precond = rebuild(precond, lambda keys, layer: (
+                (1.0 - beta) * get(precond, keys, layer)
+                + beta * get(gsq, keys, layer)))
+        with span("ranl.newton", device=masks.device):
+            new_params = newton_step(params, g, precond, cfg)
+        new_state = {"step": state["step"] + 1, "precond": precond,
+                     "memory": C_new}
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                               for x in leaves(g)))
+        metrics = {"loss": losses.mean(), "grad_norm": gnorm,
+                   "coverage": _f32_mean(masks.any(dim=0)),
+                   "uplink_frac": _f32_mean(masks)}
+        return new_params, new_state, metrics
 
 
 # --------------------------------------------------------------------------
@@ -519,8 +538,12 @@ class _Mesh:
             sizes.append(_pad16(b.numel()))
             parts.append(torch.nn.functional.pad(
                 b, (0, sizes[-1] - b.numel())))
-        wire = self.coll.all_gather(torch.cat(parts), "model")
+        flat = torch.cat(parts)
         del parts
+        with span("ranl.exchange", device=flat.device,
+                  op="all_gather:model"):
+            wire = self.coll.all_gather(flat, "model")
+        del flat
         vals, off = {}, 0
         for (key, t), nb in zip(cut, sizes):
             n = t.numel() * t.element_size()
@@ -631,6 +654,7 @@ def _train_step_mesh(params, state, batch, step, masks, loss_fn, cfg, m):
     cut = [keys for keys, _ in refs if m.dims[keys, idx[keys][0]] is not None]
     # a leaf's mask is one bool a worker: the covered/uncovered choice and
     # the count are made on the host, so no branch is computed twice
+    count("host_syncs")     # masks.cpu() waits for the card
     on = {}
     for (keys, layered), hm in zip(refs, leaf_masks(masks.cpu(), infos,
                                                     cfg.protect_glue)):
@@ -652,39 +676,43 @@ def _train_step_mesh(params, state, batch, step, masks, loss_fn, cfg, m):
     losses = buf[copies * P:copies * P + N]
     C_new = {}
     for j, (i, wb) in enumerate(m.worker_batches(batch, N)):
-        loss, grads = value_and_grad(loss_fn, full, wb)
-        losses[i] = loss
-        for r, (keys, layered) in enumerate(refs):
-            for layer in idx[keys]:
-                key = (keys, layer)
-                G = get(grads, keys, layer)
-                if beta > 0.0:
-                    views[1][key] += torch.square(m.cut(G, key).float())
-                    buf[copies * P + N + r] += torch.sum(
-                        torch.square(G.float()))
-                if cfg.compression == "int8":
-                    G = dequantize_memory(quantize_memory(
-                        G[None], layer=layered))[0].to(G.dtype)
-                elif cfg.compression == "bf16":
-                    G = G.to(torch.bfloat16).to(G.dtype)
-                count = sum(on[key])
-                Gs = m.cut(G, key)
-                C_j = _worker_of(get(state["memory"], keys, layer), j)
-                if not count:               # uncovered: the memory's mean
-                    gv[key] += _decode_memory(C_j, cfg, G.dtype)[0] / N
-                elif on[key][i]:            # m·G/count; 0 where m is off
-                    gv[key] += Gs / float(count)
-                if not on[key][i]:
-                    enc = C_j
-                elif cfg.memory_int8:
-                    enc = m.cut_encoded(_encode_memory(G[None], cfg,
-                                                       layered), key)
-                else:
-                    enc = _encode_memory(Gs[None], cfg, layered)
-                _put_worker(C_new, key, j, m.n_local, enc)
+        with span("ranl.worker_pass", device=device, worker=i):
+            loss, grads = value_and_grad(loss_fn, full, wb)
+            losses[i] = loss
+        with span("ranl.aggregate", device=device):
+            for r, (keys, layered) in enumerate(refs):
+                for layer in idx[keys]:
+                    key = (keys, layer)
+                    G = get(grads, keys, layer)
+                    if beta > 0.0:
+                        views[1][key] += torch.square(m.cut(G, key).float())
+                        buf[copies * P + N + r] += torch.sum(
+                            torch.square(G.float()))
+                    if cfg.compression == "int8":
+                        G = dequantize_memory(quantize_memory(
+                            G[None], layer=layered))[0].to(G.dtype)
+                    elif cfg.compression == "bf16":
+                        G = G.to(torch.bfloat16).to(G.dtype)
+                    n_on = sum(on[key])
+                    Gs = m.cut(G, key)
+                    C_j = _worker_of(get(state["memory"], keys, layer), j)
+                    if not n_on:            # uncovered: the memory's mean
+                        gv[key] += _decode_memory(C_j, cfg, G.dtype)[0] / N
+                    elif on[key][i]:        # m·G/count; 0 where m is off
+                        gv[key] += Gs / float(n_on)
+                    if not on[key][i]:
+                        enc = C_j
+                    elif cfg.memory_int8:
+                        enc = m.cut_encoded(_encode_memory(G[None], cfg,
+                                                           layered), key)
+                    else:
+                        enc = _encode_memory(Gs[None], cfg, layered)
+                    _put_worker(C_new, key, j, m.n_local, enc)
         del grads
     del full
-    m.coll.all_reduce(buf, m.plane)
+    with span("ranl.exchange", device=device,
+              op="all_reduce:" + "+".join(m.plane)):
+        m.coll.all_reduce(buf, m.plane)
     g = {key: v.to(get(params, *key).dtype) for key, v in gv.items()}
     hsum = {}
     if hparts is not None:
@@ -708,27 +736,31 @@ def _train_step_mesh(params, state, batch, step, masks, loss_fn, cfg, m):
         return [cfg.lr * g[keys, q].float() / torch.maximum(h, floor)
                 for q, h in zip(idx[keys], hs)]
 
-    # ‖Δ‖² and ‖g‖² of the cut leaves: one small all-reduce over "model"
-    dn2 = {keys: sum(torch.sum(torch.square(d)) for d in deltas(keys))
-           for keys, _ in refs}
-    gn2 = {key: torch.sum(torch.square(v.float())) for key, v in g.items()}
-    gn2_rep = sum(v for key, v in gn2.items() if key[0] not in hsum)
-    if hsum:
-        small = torch.stack([dn2[keys] for keys in cut]
-                            + [sum(v for key, v in gn2.items()
-                                   if key[0] in hsum)])
-        m.coll.all_reduce(small, MODEL)
-        dn2.update(zip(cut, small[:-1]))
-        gn2_rep = gn2_rep + small[-1]
-    new = {}
-    for keys, _ in refs:
-        scale = torch.clamp_max(cfg.trust_ratio * (torch.sqrt(pn2[keys])
-                                                   + 1.0)
-                                / torch.clamp_min(torch.sqrt(dn2[keys]),
-                                                  1e-20), 1.0)
-        for q, d in zip(idx[keys], deltas(keys)):
-            p = get(params, keys, q)
-            new[keys, q] = (p.float() - scale * d).to(p.dtype)
+    with span("ranl.newton", device=device):
+        # ‖Δ‖² and ‖g‖² of the cut leaves: one small all-reduce over
+        # "model"
+        dn2 = {keys: sum(torch.sum(torch.square(d)) for d in deltas(keys))
+               for keys, _ in refs}
+        gn2 = {key: torch.sum(torch.square(v.float()))
+               for key, v in g.items()}
+        gn2_rep = sum(v for key, v in gn2.items() if key[0] not in hsum)
+        if hsum:
+            small = torch.stack([dn2[keys] for keys in cut]
+                                + [sum(v for key, v in gn2.items()
+                                       if key[0] in hsum)])
+            with span("ranl.exchange", device=device,
+                      op="all_reduce:model"):
+                m.coll.all_reduce(small, MODEL)
+            dn2.update(zip(cut, small[:-1]))
+            gn2_rep = gn2_rep + small[-1]
+        new = {}
+        for keys, _ in refs:
+            scale = torch.clamp_max(
+                cfg.trust_ratio * (torch.sqrt(pn2[keys]) + 1.0)
+                / torch.clamp_min(torch.sqrt(dn2[keys]), 1e-20), 1.0)
+            for q, d in zip(idx[keys], deltas(keys)):
+                p = get(params, keys, q)
+                new[keys, q] = (p.float() - scale * d).to(p.dtype)
     m.coll.round = saved
     metrics = {"loss": losses.mean(), "grad_norm": torch.sqrt(gn2_rep),
                "coverage": _f32_mean(masks.any(dim=0)),

@@ -20,10 +20,12 @@ One module fixture starts every rank process at once: meshes (2,)
 (2,), smoke phi3.5-moe at (2, 2) (its expert dim on "model"), and phi4-
 mini with int8 compression and int8 memory at (2, 2).  The (2,) and
 (1, 2) ranks also run the train CLI with ``--data-shards 2`` and
-``--model-shards 2``.  Each rank's collective log is held to
-``analysis.train_contract``; the (1, 2) ranks' persistent RANL state
-(params, precond, memory) to at most 0.55 of the unsharded state's
-bytes.
+``--model-shards 2``.  The (2,) ranks run phi4-mini's steps once more
+under an active tracer (``obs.tracing``): bit for bit the untraced leg,
+with the round's spans and ``host_syncs`` counter read back.  Each
+rank's collective log is held to ``analysis.train_contract``; the (1, 2)
+ranks' persistent RANL state (params, precond, memory) to at most 0.55
+of the unsharded state's bytes.
 """
 
 import json
@@ -57,8 +59,11 @@ INT8 = {"compression": "int8", "memory_int8": True}
 # masks given (a layer uncovered: the memory fallback), glue trained
 # only where masked, and the EMA curvature refresh (two passes a step)
 GIVEN = {"masks": True, "protect_glue": False, "precond_beta": 0.5}
+# the phi4-2 leg's steps again under an active tracer
+TRACED = {"traced": True}
 # (name, mesh shape, mesh dims, arch, RanlLLMConfig options)
 LEGS = [("phi4-2", (2,), ("data",), PHI, {}),
+        ("phi4-2-traced", (2,), ("data",), PHI, TRACED),
         ("rwkv6-2", (2,), ("data",), RWKV, {}),
         ("phi4-1x2", (1, 2), ("data", "model"), PHI, {}),
         ("phi4-2x2", (2, 2), ("data", "model"), PHI, {}),
@@ -73,7 +78,7 @@ PARAM_ABS, PARAM_REL, LOSS_ABS, STATE_TOL = 1e-5, 3e-4, 1e-5, 1e-5
 
 
 _RANKS = textwrap.dedent(r"""
-    import json, os, sys
+    import contextlib, json, os, sys
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -83,6 +88,7 @@ _RANKS = textwrap.dedent(r"""
     from repro_torch.launch.mesh import make_engine_mesh
     from repro_torch.launch.shard import ranl_state_pspecs
     from repro_torch.models import lm_loss
+    from repro_torch.obs import tracing
     from repro_torch.optim import (RanlLLMConfig, gather_tree, init_state,
                                    shard_params, train_step)
     from repro_torch.optim.ranl_llm import mesh_sizes
@@ -117,6 +123,7 @@ _RANKS = textwrap.dedent(r"""
             continue
         kw = dict(kw)
         given = kw.pop("masks", False)
+        traced = kw.pop("traced", False)
         mesh = make_mesh()
         tcfg = smoke_variant(get_config(arch))
         params = interop.model_params_from_numpy(tcfg, inputs[arch]["params"],
@@ -146,12 +153,19 @@ _RANKS = textwrap.dedent(r"""
                "persistent_bytes": nbytes(sp) + nbytes(state["precond"])
                + nbytes(state["memory"]),
                "sizes": mesh_sizes(sp, mesh, pspecs)}
+        row["spans"], row["host_syncs"] = [], []
         for t in range(cfg["steps"]):
             masks = torch.tensor(cfg["masks"][t]) if given else None
-            sp, state, m = train_step(sp, state, batches[1 + t],
-                                      prng.PRNGKey(cfg["rng"]),
-                                      loss_fn=loss_fn, cfg=rcfg,
-                                      masks=masks, **on)
+            with tracing() if traced else contextlib.nullcontext() as tr:
+                sp, state, m = train_step(sp, state, batches[1 + t],
+                                          prng.PRNGKey(cfg["rng"]),
+                                          loss_fn=loss_fn, cfg=rcfg,
+                                          masks=masks, **on)
+            if traced:
+                row["spans"].append([(s.name, s.start_ns, s.end_ns,
+                                      dict(s.meta)) for s in tr.spans])
+                row["host_syncs"].append(
+                    tr.metrics.counter("host_syncs").value)
             row["steps"].append({"out": full(sp, state), "metrics": {
                 k: float(v) for k, v in m.items()}})
         row["log"] = [tuple(c.__dict__.values()) for c in coll.log]
@@ -161,7 +175,7 @@ _RANKS = textwrap.dedent(r"""
         ck = out + ".ck"
         jpath = out + ".journal.jsonl"
         from repro_torch.launch import train
-        import contextlib, io
+        import io
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             train.run(cfg["cli_argv"] + argv + ["--checkpoint-dir", ck,
@@ -235,7 +249,7 @@ def _leg(name):
 
 
 def _setup(inputs, arch, kw):
-    kw = {k: v for k, v in kw.items() if k != "masks"}
+    kw = {k: v for k, v in kw.items() if k not in ("masks", "traced")}
     jcfg, tcfg = cfgs(arch)
     _, tloss = loss_fns(jcfg, tcfg)
     from repro_torch import interop
@@ -320,6 +334,7 @@ def test_sharded_step_matches_the_reference_step(runs, name):
     STEP_TOL (two quanta under int8)."""
     inputs, port = runs
     _, shape, _, arch, kw = _leg(name)
+    kw = {k: v for k, v in kw.items() if k != "traced"}
     jcfg, tcfg, _, _, _, _ = _setup(inputs, arch, kw)
     jloss, _ = loss_fns(jcfg, tcfg)
     flip = FLIP.get(kw.get("compression"))
@@ -350,6 +365,54 @@ def test_sharded_step_matches_the_reference_step(runs, name):
             assert step["metrics"][k] == float(wm[k]), k
         np.testing.assert_allclose(step["metrics"]["loss"], float(wm["loss"]),
                                    rtol=1e-5)
+
+
+def _equal(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+def test_a_traced_mesh_round_is_the_round_with_its_spans(runs):
+    """Under a tracer the mesh path's steps are bit for bit the untraced
+    leg's, on every rank; each step is one ``ranl.round`` holding each
+    local worker's ``ranl.worker_pass`` (``forward``, ``backward``) and
+    ``ranl.aggregate``, then one ``ranl.exchange`` (the plane
+    all-reduce), then ``ranl.newton``; ``host_syncs`` is layers × local
+    workers (``apply_attention``'s check) and one more (the masks'
+    copy to the host)."""
+    _, port = runs
+    layers = cfgs(PHI)[1].num_layers
+    for rank, out in enumerate(port[(2,)]):
+        plain, traced = out["phi4-2"], out["phi4-2-traced"]
+        assert _equal(plain["steps"], traced["steps"])
+        assert plain["spans"] == [] and len(traced["spans"]) == STEPS
+        n_local = N // 2
+        for spans in traced["spans"]:
+            names = [s[0] for s in spans]
+            assert names[-1] == "ranl.round"
+            _, r0, r1, _ = spans[-1]
+            assert all(r0 <= s[1] <= s[2] <= r1 for s in spans)
+            top = [n for n in names if n not in (
+                "forward", "backward", "ranl.memory_decode",
+                "ranl.memory_encode")]
+            assert top == (["ranl.worker_pass", "ranl.aggregate"] * n_local
+                           + ["ranl.exchange", "ranl.newton",
+                              "ranl.round"])
+            workers = [s[3]["worker"] for s in spans
+                       if s[0] == "ranl.worker_pass"]
+            assert workers == [rank * n_local + j for j in range(n_local)]
+            (ex,) = [s for s in spans if s[0] == "ranl.exchange"]
+            assert ex[3] == {"op": "all_reduce:data"}
+            for p in (s for s in spans if s[0] == "ranl.worker_pass"):
+                assert [s[0] for s in spans if s is not p
+                        and p[1] <= s[1] <= s[2] <= p[2]] == [
+                    "forward", "backward"]
+        assert traced["host_syncs"] == [layers * n_local + 1] * STEPS
 
 
 @pytest.mark.parametrize("name", [leg[0] for leg in LEGS])
