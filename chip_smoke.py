@@ -163,9 +163,10 @@ the card and times both, then drives the port's paths at full width:
    3.8b and rwkv6-3b at full width cut to 2 layers, f32, N = 4 workers,
    global batch 8, seq 512, the train CLI's ``RanlLLMConfig``:
    ``init_state`` then 5 ``train_step``s.  K3 (K4) and its backward
-   kernel launch 4 x 2 x 6 = 48 times each; each round, run again from
-   the same inputs through the plain versions (forward and backward),
-   launches none and is held to the kernels' round: masks
+   kernel launch 4 x 2 x 6 = 48 times each, the masked aggregate once a
+   leaf a step; each round, run again from the same inputs through the
+   plain versions (forward, backward and aggregate), launches none and
+   is held to the kernels' round: masks
    (coverage, uplink) equal, loss, params and precond within
    ``TRAIN_TOL`` (1e-3 for K3, 1e-2 for K4).  init seconds, step seconds
    split into the per-worker forwards and backwards, the aggregate and
@@ -200,6 +201,14 @@ the card and times both, then drives the port's paths at full width:
    ``HALF_STATE`` of it at (1, 2)); and the train CLI with ``--smoke
    --data-shards 2`` on the two ranks, its final line within
    ``TRAIN_TOL`` of the one-rank CLI run's.
+
+masked_aggregate (run after the kernels phase): the deep-net aggregate's
+kernel against its plain version on the card at phi4-mini's head at N = 4
+(4, 200064 x 3072), rwkv6-3b's embedding at N = 12 (12, 65536 x 2560)
+and small leaves (N = 1, rows not a multiple of 8), in bf16 and f32
+memory, with all, some, one and no workers trained: C' and g bit-equal;
+then timed at the two cells' shapes beside the (8N + 4) P byte bound and
+the plain version's time.
 
 K1 and K2 are also held against their plain versions at the batch
 engine's (8, 32, 8192) and (8, 32, 4096), a ragged (3, 7, 513) and B = 1,
@@ -241,7 +250,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 L2_BYTES = 50 << 20              # H100 L2
 TIMED_CALLS = 20
 KERNELS = ("region_aggregate", "ranl_update", "flash_attention", "rwkv_wkv",
-           "chol_update", "flash_attention_bwd", "rwkv_wkv_bwd")
+           "chol_update", "flash_attention_bwd", "rwkv_wkv_bwd",
+           "masked_aggregate")
 ZERO = {name: 0 for name in KERNELS}
 SOURCES = {"region_aggregate": "src/repro_torch/kernels/region_aggregate.py",
            "ranl_update": "src/repro_torch/kernels/region_aggregate.py",
@@ -249,22 +259,25 @@ SOURCES = {"region_aggregate": "src/repro_torch/kernels/region_aggregate.py",
            "rwkv_wkv": "src/repro_torch/csrc/rwkv_wkv.cu",
            "chol_update": "src/repro_torch/csrc/chol_update.cu",
            "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
-           "rwkv_wkv_bwd": "src/repro_torch/csrc/rwkv_wkv_bwd.cu"}
+           "rwkv_wkv_bwd": "src/repro_torch/csrc/rwkv_wkv_bwd.cu",
+           "masked_aggregate": "src/repro_torch/csrc/masked_aggregate.cu"}
 ROUTES = {"region_aggregate": "triton", "ranl_update": "triton",
           "flash_attention": "cuda", "rwkv_wkv": "cuda",
           "chol_update": "cuda", "flash_attention_bwd": "cuda",
-          "rwkv_wkv_bwd": "cuda"}
+          "rwkv_wkv_bwd": "cuda", "masked_aggregate": "cuda"}
 # chol_update ports no Pallas kernel: it replaces the reference's rank-1
 # sweep, a compiled lax.scan.  No Pallas kernel has a backward: the two
 # backward kernels replace XLA's autodiff of the reference's attention
-# and checkpointed wkv scan.
+# and checkpointed wkv scan.  masked_aggregate ports none either: the
+# reference's deep-net aggregate is plain jnp.
 REPLACES = {"region_aggregate": "src/repro/kernels/region_aggregate.py:75",
             "ranl_update": "src/repro/kernels/region_aggregate.py:138",
             "flash_attention": "src/repro/kernels/flash_attention.py:77",
             "rwkv_wkv": "src/repro/kernels/rwkv_wkv.py:57",
             "chol_update": "src/repro/core/compression.py:303",
             "flash_attention_bwd": "src/repro/models/attention.py:50",
-            "rwkv_wkv_bwd": "src/repro/models/rwkv.py:65"}
+            "rwkv_wkv_bwd": "src/repro/models/rwkv.py:65",
+            "masked_aggregate": "src/repro/optim/ranl_llm.py:162"}
 # main-path shapes (N, D) each kernel sees: dense rounds (K1), diag (K2)
 MAIN_SHAPE = {"region_aggregate": (32, 8192), "ranl_update": (32, 4096)}
 SEEDS = 8                       # the batch engine's seeds (batch_* phases)
@@ -274,6 +287,10 @@ LARGE_SHAPE = (32, 1 << 22)
 # the pod rows (B·P, N/P, D) the hierarchy phase's runs give K1/K2: dense
 # pods=2, diag pods=4, and the diag run over SEEDS seeds
 POD_ROW_SHAPES = ((2, 16, 8192), (4, 8, 4096), (SEEDS * 4, 8, 4096))
+# the masked aggregate's timed leaves (N, P): phi4-mini n4's tied head and
+# rwkv6-3b n12's embedding
+MASKED_SHAPES = {"phi4_head_n4": (4, 200064 * 3072),
+                 "rwkv6_embed_n12": (12, 65536 * 2560)}
 # K2 on a model shard's d-slice (the 2-D engine on two model ranks): x and
 # hdiag are the second half of (2·D,) vectors, G, M, C (N, D) of their own
 SLICE_SHAPE = (32, 2048)
@@ -487,6 +504,79 @@ def phase_kernels(torch, report):
         # the row's contract numbers are the batch engine's shape
         for key in ("ms", "plain_ms", "bound_ms", "shape"):
             report[name][key] = report[name][f"{key}_batch"]
+
+
+def masked_inputs(torch, n, p, kind, memory, gen):
+    """G (n, p) f32, a mask (n,) of ``kind`` (all / some / one / none
+    trained) and a memory (n, p) in ``memory``, on the card."""
+    G = torch.randn(n, p, device="cuda", generator=gen)
+    C = torch.randn(n, p, device="cuda", generator=gen).to(memory)
+    m = torch.zeros(n, dtype=torch.bool, device="cuda")
+    if kind == "all":
+        m[:] = True
+    elif kind == "some":
+        m[::2] = True
+    elif kind == "one":
+        m[n - 1] = True
+    return G, m, C
+
+
+def masked_bytes(n, p, memory_bytes):
+    """The masked aggregate's bytes: G and C read, C' and g written."""
+    return (4 + 2 * memory_bytes) * n * p + 4 * p
+
+
+def phase_masked_aggregate(torch, report):
+    """The deep-net aggregate's kernel against its plain version (C' and g
+    bit-equal), then timed at the cells' leaves beside its byte bound and
+    the plain version's time."""
+    from repro_torch.kernels import masked_aggregate as MA
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.time()
+    MA.masked_aggregate(*masked_inputs(torch, 2, 8, "all", torch.bfloat16,
+                                       gen))
+    torch.cuda.synchronize()
+    log(f"masked_aggregate build + first launch: {time.time() - t0:.2f} s")
+    checked = 0
+    for (n, p) in ((*MASKED_SHAPES.values(),) + ((1, 4096), (12, 999),
+                                                 (3, 1037), (4, 3072))):
+        for memory in (torch.bfloat16, torch.float32):
+            for kind in ("all", "some", "one", "none"):
+                args = masked_inputs(torch, n, p, kind, memory, gen)
+                got = MA.masked_aggregate(*args)
+                want = ref.masked_aggregate_ref(*args)
+                if not (torch.equal(got[1], want[1])
+                        and torch.equal(got[0], want[0])):
+                    raise AssertionError(f"masked_aggregate ({n}, {p}) "
+                                         f"{memory} {kind}: differs from "
+                                         f"its plain version")
+                checked += 1
+                del args, got, want
+        torch.cuda.empty_cache()
+    row = {"max_abs_err": 0.0, "checked": checked}
+    log(f"masked_aggregate: C' and g bit-equal to the plain version in "
+        f"{checked} cases (bf16 and f32 memory; all, some, one, no "
+        f"workers trained)")
+    for label, (n, p) in MASKED_SHAPES.items():
+        args = masked_inputs(torch, n, p, "some", torch.bfloat16, gen)
+        nbytes = masked_bytes(n, p, 2)
+        ms = device_ms(torch, MA.masked_aggregate, [args])
+        torch.cuda.empty_cache()
+        plain_ms = device_ms(torch, ref.masked_aggregate_ref, [args])
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        row[label] = {"shape": [n, p], "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bytes": nbytes}
+        log(f"masked_aggregate at {label} (N, P) = ({n}, {p}) bf16 memory: "
+            f"on the card {ms:.5f} ms ({bound / ms:.1%} of its bound "
+            f"{bound:.5f} ms = {nbytes} B at 3.35 TB/s); plain {plain_ms:.5f}"
+            f" ms")
+        del args
+        torch.cuda.empty_cache()
+    head = row["phi4_head_n4"]
+    row.update(ms=head["ms"], plain_ms=head["plain_ms"],
+               bound_ms=head["bound_ms"], shape=head["shape"])
+    report["masked_aggregate"] = row
 
 
 def sync_time(torch, fn):
@@ -2837,23 +2927,24 @@ def phase_serve(torch, report, launches, arch, expect):
 
 @contextlib.contextmanager
 def plain_twins():
-    """K3 and K4, forward and backward, through their plain versions on
-    the card (the wrappers' module functions swapped, and put back
-    after)."""
+    """K3 and K4, forward and backward, and the masked aggregate through
+    their plain versions on the card (the wrappers' module functions
+    swapped, and put back after)."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import masked_aggregate as ma
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv_wkv as wkv
     saved = (fa.flash_attention, fa.flash_attention_bwd, wkv.rwkv_wkv,
-             wkv.rwkv_wkv_bwd)
+             wkv.rwkv_wkv_bwd, ma.masked_aggregate)
     (fa.flash_attention, fa.flash_attention_bwd, wkv.rwkv_wkv,
-     wkv.rwkv_wkv_bwd) = (ref.flash_attention_ref,
-                          ref.flash_attention_bwd_ref, ref.rwkv_wkv_ref,
-                          ref.rwkv_wkv_bwd_ref)
+     wkv.rwkv_wkv_bwd, ma.masked_aggregate) = (
+        ref.flash_attention_ref, ref.flash_attention_bwd_ref,
+        ref.rwkv_wkv_ref, ref.rwkv_wkv_bwd_ref, ref.masked_aggregate_ref)
     try:
         yield
     finally:
         (fa.flash_attention, fa.flash_attention_bwd, wkv.rwkv_wkv,
-         wkv.rwkv_wkv_bwd) = saved
+         wkv.rwkv_wkv_bwd, ma.masked_aggregate) = saved
 
 
 def serve_gaps(torch, cfg, seed, tol=None):
@@ -3141,20 +3232,37 @@ def ranl_run(torch, params, batches, rcfg, loss_fn, tol):
 
 def step_split(torch, params, state, batch, rcfg, loss_fn):
     """One round's parts, each timed to a sync: the per-worker forwards
-    and backwards, the aggregate, the Newton step."""
+    and backwards, the aggregate, the Newton step.  The aggregate runs
+    twice, each time on a pass's fresh gradients: the first call's time
+    and the second's, each with the ``cudaMalloc`` calls it made (the
+    caching allocator's new segments)."""
     from repro_torch import prng
     from repro_torch.core.masks import sample_masks
     from repro_torch.optim.ranl_llm import (aggregate, newton_step,
                                             per_worker_grads, region_layout)
-    (_, G), grads_s = sync_time(torch, lambda: per_worker_grads(
-        loss_fn, params, batch, rcfg.num_workers))
     masks = sample_masks(rcfg.policy, prng.PRNGKey(1), 0, rcfg.num_workers,
                          region_layout(params)[0], "cuda")
-    (g, _, _), agg_s = sync_time(torch, lambda: aggregate(
-        G, state["memory"], masks, params, rcfg))
+
+    def segments():
+        return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+    def grads():
+        return per_worker_grads(loss_fn, params, batch, rcfg.num_workers)[1]
+
+    def timed_aggregate(G):
+        before = segments()
+        (g, _, _), s = sync_time(torch, lambda: aggregate(
+            G, state["memory"], masks, params, rcfg))
+        return g, s, segments() - before
+    G, grads_s = sync_time(torch, grads)
+    g, first_s, first_mallocs = timed_aggregate(G)
+    del g
+    g, agg_s, mallocs = timed_aggregate(grads())
     _, newton_s = sync_time(torch, lambda: newton_step(
         params, g, state["precond"], rcfg))
-    return {"grads_s": grads_s, "aggregate_s": agg_s, "newton_s": newton_s}
+    return {"grads_s": grads_s, "aggregate_first_s": first_s,
+            "aggregate_first_mallocs": first_mallocs, "aggregate_s": agg_s,
+            "aggregate_mallocs": mallocs, "newton_s": newton_s}
 
 
 def leaves_close(torch, got, want, label, tol, share=0.0):
@@ -3233,6 +3341,7 @@ def phase_train(torch, report, launches, arch, kernel, seq):
     it: masks (coverage, uplink) equal, loss, params and precond within
     TRAIN_TOL[kernel]."""
     from repro_torch.optim import RanlLLMConfig
+    from repro_torch.tree import leaves
     cfg, params, batches, loss_fn = train_setup(torch, arch, seq)
     rcfg = RanlLLMConfig(num_workers=TRAIN["workers"], keep_prob=0.7,
                          mu=1e-4, lr=1.0)
@@ -3243,9 +3352,12 @@ def phase_train(torch, report, launches, arch, kernel, seq):
                                           loss_fn, TRAIN_TOL[kernel]))
     peak = torch.cuda.max_memory_allocated()
     want = TRAIN["workers"] * TRAIN["layers"] * (1 + TRAIN["steps"])
-    if counts != {**ZERO, kernel: want, f"{kernel}_bwd": want}:
+    aggregates = len(leaves(params)) * TRAIN["steps"]
+    if counts != {**ZERO, kernel: want, f"{kernel}_bwd": want,
+                  "masked_aggregate": aggregates}:
         raise AssertionError(f"train {arch}: launches {counts}, expected "
-                             f"{kernel} and {kernel}_bwd: {want}")
+                             f"{kernel} and {kernel}_bwd: {want}, "
+                             f"masked_aggregate: {aggregates}")
     del params
     split = step_split(torch, p, state, batches[1], rcfg, loss_fn)
     del p, state
@@ -3276,7 +3388,10 @@ def phase_train(torch, report, launches, arch, kernel, seq):
         f"batch 8 x {seq}): init_state {init_s:.3f} s; steps "
         f"{[round(x, 4) for x in step_s]} s (warm median {warm:.4f} s: "
         f"grads {split['grads_s']:.4f}, aggregate {split['aggregate_s']:.4f}"
-        f", Newton {split['newton_s']:.4f}); {tokens / warm:.0f} tokens/s; "
+        f" with {split['aggregate_mallocs']} cudaMallocs (first call "
+        f"{split['aggregate_first_s']:.4f} with "
+        f"{split['aggregate_first_mallocs']}), Newton "
+        f"{split['newton_s']:.4f}); {tokens / warm:.0f} tokens/s; "
         f"peak {peak / 1e9:.2f} GB; launches {counts}; losses "
         f"{row['losses']}; each round vs the same round through the twins: "
         f"params / precond within {gaps['params']:.3e} / "
@@ -3972,6 +4087,8 @@ def main(argv=None) -> int:
     for label, fn in (
             ("build", lambda: phase_build(report)),
             ("kernels", lambda: phase_kernels(torch, report)),
+            ("masked_aggregate", lambda: phase_masked_aggregate(torch,
+                                                                report)),
             ("kernels_attn_wkv", lambda: phase_attn_wkv(torch, report)),
             ("dense", lambda: phase_dense(torch, rt, report, launches)),
             ("diag", lambda: phase_diag(torch, rt, report, launches)),

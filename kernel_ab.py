@@ -5,7 +5,7 @@ turns.
     python3 kernel_ab.py --kernel NAME [--seeds B] TREE [TREE ...]
 
 NAME is one of flash_attention, rwkv_wkv, region_aggregate, ranl_update,
-flash_attention_bwd, rwkv_wkv_bwd, chol_update.
+flash_attention_bwd, rwkv_wkv_bwd, chol_update, masked_aggregate.
 ``--seeds B`` times the aggregation kernels in their seed-batched form,
 (B, N, D) at each shape, as the batch engine launches them (a tree whose
 kernel has no seed axis fails its check).
@@ -42,7 +42,12 @@ the aggregation kernels also get one call with the host's launch
   the factor of a random SPD matrix: held to the plain loop (within
   ``CHOL_RTOL`` x max |L|, and whether bit-equal), then timed as
   ``chip_smoke.py`` times it (CUDA-graph replays), beside the byte bound
-  and, where the tree has it, the chain alone (``chol_update.chain``).
+  and, where the tree has it, the chain alone (``chol_update.chain``);
+- masked_aggregate (N, P): phi4-mini n4's tied head (4, 200064 x 3072)
+  and rwkv6-3b n12's embedding (12, 65536 x 2560), bf16 memory, half the
+  workers trained: held to the plain version bit for bit, then timed
+  (CUDA-graph replays) beside the (8N + 4) P byte bound and the plain
+  version's time.
 
 Prints the card's name and power limit, then one line per (run, shape).
 Needs a CUDA card.
@@ -69,6 +74,7 @@ SHAPES = {
     "rwkv_wkv_bwd": (((2, 512, 40, 64), "float32"),
                      ((2, 512, 40, 64), "bfloat16")),
     "chol_update": ((8192, 4),),
+    "masked_aggregate": ((4, 200064 * 3072), (12, 65536 * 2560)),
 }
 RUN_TIMEOUT_S = 300
 
@@ -209,6 +215,31 @@ def time_chol(C, torch, tree, gen):
         torch.cuda.empty_cache()
 
 
+def time_masked(C, torch, tree, gen):
+    """masked_aggregate at each (N, P): against the plain version bit for
+    bit, then timed beside its bound and the plain version."""
+    from repro_torch.kernels import masked_aggregate as MA
+    from repro_torch.kernels import ref
+    for n, p in SHAPES["masked_aggregate"]:
+        args = C.masked_inputs(torch, n, p, "some", torch.bfloat16, gen)
+        got, want = MA.masked_aggregate(*args), ref.masked_aggregate_ref(
+            *args)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            raise AssertionError(f"{tree}: masked_aggregate differs from "
+                                 f"its plain version at {(n, p)}")
+        del got, want
+        ms = C.device_ms(torch, MA.masked_aggregate, [args])
+        torch.cuda.empty_cache()
+        plain_ms = C.device_ms(torch, ref.masked_aggregate_ref, [args])
+        bound = C.masked_bytes(n, p, 2) / C.HBM_BYTES_PER_S * 1e3
+        print(f"{tree} {(n, p)}: {ms:.5f} ms (bound {bound:.5f} ms by "
+              f"bytes, {bound / ms:.1%}); plain {plain_ms:.5f} ms",
+              flush=True)
+        del args
+        torch.cuda.empty_cache()
+
+
 def run_one(kernel: str, tree: str, seeds=None):
     """Build, check and time the kernel of one tree (in this process)."""
     import chip_smoke as C            # timing helpers of this checkout
@@ -225,6 +256,8 @@ def run_one(kernel: str, tree: str, seeds=None):
         time_backward(C, torch, tree, gen, kernel)
     elif kernel == "chol_update":
         time_chol(C, torch, tree, gen)
+    elif kernel == "masked_aggregate":
+        time_masked(C, torch, tree, gen)
     else:
         time_aggregate(C, torch, tree, gen, kernel, seeds)
 

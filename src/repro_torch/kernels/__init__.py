@@ -12,6 +12,10 @@
   chol_update — the low-rank Cholesky update of the ``hessian_rank``
       init, r rank-1 sweeps in one launch.  CUDA C++
       (``csrc/chol_update.cu``); it ports no Pallas kernel.
+  masked_aggregate — one leaf of the deep-net RANL aggregate: G and the
+      stored memory read once, g and the new memory written once.  CUDA
+      C++ (``csrc/masked_aggregate.cu``); it ports no Pallas kernel (the
+      reference's is plain ``jnp``).
 
 flash_attention and rwkv_wkv carry gradients: ``ops`` wraps each in a
 ``torch.autograd.Function`` whose backward is the backward kernel on the

@@ -16,6 +16,7 @@ import torch
 
 from . import chol_update as _chol
 from . import flash_attention as _fa
+from . import masked_aggregate as _ma
 from . import ref
 from . import region_aggregate as _k
 from . import rwkv_wkv as _wkv
@@ -41,6 +42,15 @@ def ranl_update(params, hdiag, grads, masks, memory, *, mu: float,
         return ref.ranl_update_ref(params, hdiag, grads, masks, memory,
                                    mu=mu, lr=lr)
     return _k.ranl_update(params, hdiag, grads, masks, memory, mu=mu, lr=lr)
+
+
+def masked_aggregate(G, mask, C):
+    """G (N, *leaf); mask (N,) bool; C the stored memory, (N, *leaf) in
+    its own type -> (g shaped like the leaf, C_new in C's type).  The
+    kernel takes G in f32 and C in bf16, f16 or f32."""
+    if _on_cpu(G):
+        return ref.masked_aggregate_ref(G, mask, C)
+    return _ma.masked_aggregate(G, mask, C)
 
 
 def _wants_grad(*inputs) -> bool:

@@ -36,6 +36,35 @@ def ranl_update_ref(params, hdiag, grads, masks, memory, *, mu: float,
     return new_params, new_memory
 
 
+def masked_aggregate_ref(G, mask, C):
+    """Server aggregation of one leaf (Algorithm 1 lines 15–22): the plain
+    version of ``masked_aggregate``.
+
+    G: (N, *leaf); C: the stored memory, (N, *leaf) in its own type;
+    mask: bool (N, ...) broadcastable to G.  Returns (g, C_new): covered
+    coordinates average the covering workers' G, uncovered ones the
+    memory over all N; C_new is G where the worker trained, else C, in C's
+    type.  Each worker's contribution is the reference's,
+    ``where(covered, m·G/count, C/N)`` computed in G's type, added in
+    worker order, one worker at a time: the memory is decoded and the new
+    memory encoded a worker row at a time, so no (N, *leaf) temporary is
+    made."""
+    N = G.shape[0]
+    m = mask.reshape(mask.shape + (1,) * (G.ndim - mask.ndim))
+    mf = m.to(G.dtype)
+    count = mf.sum(dim=0)
+    covered = count > 0
+    count = torch.clamp_min(count, 1.0)
+    g = None
+    C_new = torch.empty_like(C)
+    for i in range(N):
+        c_i = C[i].to(G.dtype)
+        part = torch.where(covered, mf[i] * G[i] / count, c_i / N)
+        g = part if g is None else g + part
+        C_new[i] = torch.where(m[i], G[i], c_i).to(C.dtype)
+    return g, C_new
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         scale: float | None = None, return_lse: bool = False):
     """Full-softmax attention: the plain version of ``flash_attention``.

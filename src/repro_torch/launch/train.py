@@ -19,8 +19,8 @@ the spans, a summary; ``python -m repro_torch.obs.report PATH`` renders
 it) and ``--trace PATH`` a Chrome trace of ``execute`` spans (one a
 step, timed by CUDA events on the card), the round's own spans inside
 each (``optim.ranl_llm.train_step``: the workers' forwards and
-backwards, the aggregate and its memory codec, the Newton step, the
-exchange) and the ``checkpoint`` span: the tracer is active over the
+backwards, the aggregate (with its memory codec where the memory is
+int8), the Newton step, the exchange) and the ``checkpoint`` span: the tracer is active over the
 steps.
 The port runs eagerly, so it has no ``lower``/``compile`` spans and no
 compiled HLO for ``--dump-hlo`` to write.

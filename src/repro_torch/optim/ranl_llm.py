@@ -61,6 +61,9 @@ import torch
 from .. import prng
 from ..core.collectives import Collectives
 from ..core.masks import PolicyConfig, sample_masks
+from ..kernels import ops
+# the plain version under the reference's name, for callers of the module
+from ..kernels.ref import masked_aggregate_ref as masked_aggregate  # noqa: F401
 from ..launch.shard import BATCH, MODEL, local_shard, model_dim
 from ..obs.trace import count, span
 from ..tree import get, leaf_paths, leaves, num_layers, put, rebuild
@@ -162,36 +165,6 @@ def leaf_masks(masks, infos, protect_glue: bool):
             m = torch.ones_like(masks[:, v]) if protect_glue else masks[:, v]
             out.append(m[:, None])
     return out
-
-
-def _bshape(mask, ndim: int):
-    """Reshape an (N, ...) mask to broadcast against an ndim-d leaf."""
-    return mask.reshape(mask.shape + (1,) * (ndim - mask.ndim))
-
-
-def masked_aggregate(G, mask, C):
-    """Server aggregation of one leaf (Algorithm 1 lines 15–22).
-
-    G, C: (N, *leaf); mask: bool (N, ...) broadcastable to it.  Returns
-    (g, C_new): covered coordinates average the covering workers' G,
-    uncovered ones the memory C over all N; C_new is G where the worker
-    trained, else C (in C's dtype).  Each worker's contribution is the
-    reference's, ``where(covered, m·G/count, C/N)``, added in worker
-    order, one worker at a time, so no (N, *leaf) temporary is made."""
-    N = G.shape[0]
-    m = _bshape(mask, G.ndim)
-    mf = m.to(G.dtype)
-    count = mf.sum(dim=0)
-    covered = count > 0
-    count = torch.clamp_min(count, 1.0)
-    g = None
-    C_new = torch.empty_like(C)
-    for i in range(N):
-        c_i = C[i].to(G.dtype)
-        part = torch.where(covered, mf[i] * G[i] / count, c_i / N)
-        g = part if g is None else g + part
-        C_new[i] = torch.where(m[i], G[i], c_i).to(C.dtype)
-    return g, C_new
 
 
 # --------------------------------------------------------------------------
@@ -317,11 +290,17 @@ def init_state(params, loss_fn, batch, cfg: RanlLLMConfig, key,
 
 def aggregate(G, memory, masks, params, cfg: RanlLLMConfig):
     """The server's aggregate, leaf by leaf in the reference's order:
-    compression of the uplink, then ``masked_aggregate`` against the
-    decoded memory, then the new memory encoded.  G's leaves are freed
-    as they are used (G is emptied).  Returns (g, C_new, gsq): gsq is the
+    compression of the uplink, then the masked combine against the stored
+    memory, which writes the new memory.  G's leaves are freed as they
+    are used (G is emptied).  Returns (g, C_new, gsq): gsq is the
     worker-mean squared (uncompressed) gradient for the EMA curvature
-    refresh, or None when ``precond_beta`` is 0."""
+    refresh, or None when ``precond_beta`` is 0.
+
+    Each leaf goes to ``ops.masked_aggregate`` (the kernel on the card,
+    which takes an f32 G) with the memory as it is stored, so no f32
+    copy of it is made.  An int8 memory is decoded to G's type ahead of
+    the combine and its new memory encoded after it (spans
+    ``ranl.memory_decode``/``ranl.memory_encode``)."""
     _, L, infos = region_layout(params)
     lmasks = leaf_masks(masks, infos, cfg.protect_glue)
     g, c_new, gsq = {}, {}, {}
@@ -337,10 +316,14 @@ def aggregate(G, memory, masks, params, cfg: RanlLLMConfig):
             elif cfg.compression == "bf16":
                 Gl = Gl.to(torch.bfloat16).to(Gl.dtype)
             ml = lm[:, layer] if layered else lm[:, 0]
-            Cl = _decode_memory(get(memory, keys, layer), cfg, Gl.dtype)
-            g[keys, layer], c = masked_aggregate(Gl, ml, Cl)
+            Cl = get(memory, keys, layer)
+            if cfg.memory_int8:
+                Cl = _decode_memory(Cl, cfg, Gl.dtype)
+            g[keys, layer], c = ops.masked_aggregate(Gl, ml, Cl)
             del Gl, Cl
-            c_new[keys, layer] = _encode_memory(c, cfg, layered)
+            if cfg.memory_int8:
+                c = _encode_memory(c, cfg, layered)
+            c_new[keys, layer] = c
             del c
 
     def out(d):
@@ -410,7 +393,9 @@ def train_step(params, state, batch, rng, *, loss_fn, cfg: RanlLLMConfig,
     Under an active tracer (``obs.tracing``) the round is the span
     ``ranl.round``, holding ``ranl.worker_pass`` (each with ``forward``
     and ``backward``), ``ranl.aggregate`` (with ``ranl.memory_decode``
-    and ``ranl.memory_encode``), ``ranl.newton`` and, on a mesh,
+    and ``ranl.memory_encode`` a leaf where the memory is int8, and on a
+    mesh wherever a worker's memory is decoded or encoded),
+    ``ranl.newton`` and, on a mesh,
     ``ranl.exchange``; each place the host waits on the card adds to the
     counter ``host_syncs``."""
     m = None if mesh is None else _Mesh(mesh, params, coll, pspecs,

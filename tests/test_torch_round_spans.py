@@ -5,8 +5,10 @@
   state and metrics);
 * the span tree of one round: ``ranl.round`` holds N
   ``ranl.worker_pass`` (each one ``forward`` and one ``backward``), then
-  ``ranl.aggregate`` with a ``ranl.memory_decode`` and a
-  ``ranl.memory_encode`` a leaf, then ``ranl.newton``;
+  ``ranl.aggregate``, then ``ranl.newton``; inside the aggregate a
+  ``ranl.memory_decode`` and a ``ranl.memory_encode`` a leaf where the
+  memory is int8, and none where it is bf16 (the combine reads and
+  writes the stored memory itself);
 * ``host_syncs`` counts layers × N a round on a transformer (the
   ``torch.equal`` check in ``apply_attention``) and none on RWKV-6;
 * a tracer that is not active records nothing;
@@ -35,9 +37,10 @@ from repro_torch.tree import leaves  # noqa: E402
 
 N = 2
 ARCHS = {"phi4-mini-3.8b": 1, "rwkv6-3b": 0}   # host_syncs a layer a worker
+MEMORY = ("bf16", "int8")
 
 
-def _round_inputs(arch):
+def _round_inputs(arch, memory="bf16"):
     cfg = smoke_variant(get_config(arch))
     g = torch.Generator().manual_seed(0)
     params = init_model(cfg, g)
@@ -45,17 +48,19 @@ def _round_inputs(arch):
 
     def loss_fn(p, b):
         return lm_loss(p, b, cfg)
-    rcfg = RanlLLMConfig(num_workers=N)
+    rcfg = RanlLLMConfig(num_workers=N, memory_int8=memory == "int8")
     state = init_state(params, loss_fn, batches[0], rcfg, prng.PRNGKey(0))
     return cfg, params, state, batches[1], loss_fn, rcfg
 
 
-@pytest.fixture(scope="module", params=sorted(ARCHS))
+@pytest.fixture(scope="module", params=[(a, m) for a in sorted(ARCHS)
+                                        for m in MEMORY],
+                ids=lambda p: "-".join(p))
 def traced_round(request):
-    """(arch, layers, the round's inputs, its outputs without a tracer,
-    its outputs under one, the tracer)."""
-    arch = request.param
-    cfg, params, state, batch, loss_fn, rcfg = _round_inputs(arch)
+    """(arch, memory, layers, the round's inputs, its outputs without a
+    tracer, its outputs under one, the tracer)."""
+    arch, memory = request.param
+    cfg, params, state, batch, loss_fn, rcfg = _round_inputs(arch, memory)
 
     def step():
         return train_step(params, state, batch, prng.PRNGKey(3),
@@ -63,17 +68,21 @@ def traced_round(request):
     plain = step()
     with tracing() as tr:
         traced = step()
-    return arch, cfg.num_layers, params, plain, traced, tr
+    return arch, memory, cfg.num_layers, params, plain, traced, tr
 
 
 def test_a_traced_round_is_bit_for_bit_the_round(traced_round):
-    _, _, _, plain, traced, _ = traced_round
+    _, _, _, _, plain, traced, _ = traced_round
     (p0, s0, m0), (p1, s1, m1) = plain, traced
     for a, b in zip(leaves(p0), leaves(p1)):
         assert torch.equal(a, b)
     for k in ("precond", "memory"):
         for a, b in zip(leaves(s0[k]), leaves(s1[k])):
-            assert torch.equal(a, b), k
+            if isinstance(a, dict):         # an int8 memory leaf
+                assert a.keys() == b.keys(), k
+                assert all(torch.equal(a[n], b[n]) for n in a), k
+            else:
+                assert torch.equal(a, b), k
     assert torch.equal(s0["step"], s1["step"])
     assert m0.keys() == m1.keys()
     assert all(torch.equal(m0[k], m1[k]) for k in m0)
@@ -85,7 +94,7 @@ def _inside(child, parent):
 
 
 def test_the_round_span_tree_and_its_host_syncs(traced_round):
-    arch, layers, params, _, _, tr = traced_round
+    arch, memory, layers, params, _, _, tr = traced_round
     spans = tr.spans
     rounds = [s for s in spans if s.name == "ranl.round"]
     assert len(rounds) == 1 and spans[-1] is rounds[0]
@@ -101,15 +110,17 @@ def test_the_round_span_tree_and_its_host_syncs(traced_round):
     (newton,) = [s for s in spans if s.name == "ranl.newton"]
     assert passes[-1].end_ns <= agg.start_ns and agg.end_ns <= \
         newton.start_ns
-    n_leaves = len(leaves(params))
-    for name in ("ranl.memory_decode", "ranl.memory_encode"):
+    # a codec pass a leaf runs only for the int8 memory
+    n_codec = len(leaves(params)) if memory == "int8" else 0
+    codec_names = {"ranl.memory_decode", "ranl.memory_encode"}
+    for name in sorted(codec_names):
         codec = [s for s in spans if s.name == name]
-        assert len(codec) == n_leaves and all(_inside(s, agg)
-                                              for s in codec)
+        assert len(codec) == n_codec and all(_inside(s, agg)
+                                             for s in codec)
     assert {s.name for s in spans} == {
         "ranl.round", "ranl.worker_pass", "forward", "backward",
-        "ranl.aggregate", "ranl.memory_decode", "ranl.memory_encode",
-        "ranl.newton"}
+        "ranl.aggregate", "ranl.newton"} | (codec_names if n_codec
+                                            else set())
     assert tr.metrics.counter("host_syncs").value == ARCHS[arch] * layers * N
     assert all(s.device_s is None for s in tr.resolve())   # on the CPU
 
