@@ -210,6 +210,18 @@ memory, with all, some, one and no workers trained: C' and g bit-equal;
 then timed at the two cells' shapes beside the (8N + 4) P byte bound and
 the plain version's time.
 
+grouped_matmul (run after masked_aggregate): the expert layer's grouped
+f32 product and its two backward products (``grouped_matmul_bwd``: dx
+and dw) against their plain versions on the card at the AFMoE cell's
+shapes, 32768 rows of which 8192 are routed over 32 experts, (d, width)
+= (2048, 1024) and (1024, 2048), with even groups, skewed groups and
+one empty group: within ``GMM_RTOL`` of the largest entry, rows outside
+every group exactly 0, and the plain version with TF32 on outside that
+tolerance.  Then timed at the gate's shape beside the f32 operations'
+bound, the plain per-group loop and ``torch._grouped_mm`` (the
+yardstick); last, one main-path run of the cell's expert layer, forward
+and backward, whose launches it counts.
+
 K1 and K2 are also held against their plain versions at the batch
 engine's (8, 32, 8192) and (8, 32, 4096), a ragged (3, 7, 513) and B = 1,
 and their row's ``ms``/``bound_ms`` are those batched shapes'.
@@ -251,7 +263,7 @@ L2_BYTES = 50 << 20              # H100 L2
 TIMED_CALLS = 20
 KERNELS = ("region_aggregate", "ranl_update", "flash_attention", "rwkv_wkv",
            "chol_update", "flash_attention_bwd", "rwkv_wkv_bwd",
-           "masked_aggregate")
+           "masked_aggregate", "grouped_matmul", "grouped_matmul_bwd")
 ZERO = {name: 0 for name in KERNELS}
 SOURCES = {"region_aggregate": "src/repro_torch/kernels/region_aggregate.py",
            "ranl_update": "src/repro_torch/kernels/region_aggregate.py",
@@ -260,16 +272,20 @@ SOURCES = {"region_aggregate": "src/repro_torch/kernels/region_aggregate.py",
            "chol_update": "src/repro_torch/csrc/chol_update.cu",
            "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
            "rwkv_wkv_bwd": "src/repro_torch/csrc/rwkv_wkv_bwd.cu",
-           "masked_aggregate": "src/repro_torch/csrc/masked_aggregate.cu"}
+           "masked_aggregate": "src/repro_torch/csrc/masked_aggregate.cu",
+           "grouped_matmul": "src/repro_torch/csrc/grouped_matmul.cu",
+           "grouped_matmul_bwd": "src/repro_torch/csrc/grouped_matmul.cu"}
 ROUTES = {"region_aggregate": "triton", "ranl_update": "triton",
           "flash_attention": "cuda", "rwkv_wkv": "cuda",
           "chol_update": "cuda", "flash_attention_bwd": "cuda",
-          "rwkv_wkv_bwd": "cuda", "masked_aggregate": "cuda"}
+          "rwkv_wkv_bwd": "cuda", "masked_aggregate": "cuda",
+          "grouped_matmul": "cuda", "grouped_matmul_bwd": "cuda"}
 # chol_update ports no Pallas kernel: it replaces the reference's rank-1
 # sweep, a compiled lax.scan.  No Pallas kernel has a backward: the two
 # backward kernels replace XLA's autodiff of the reference's attention
 # and checkpointed wkv scan.  masked_aggregate ports none either: the
-# reference's deep-net aggregate is plain jnp.
+# reference's deep-net aggregate is plain jnp.  Nor does grouped_matmul:
+# the reference's MoE multiplies a capacity buffer by einsum.
 REPLACES = {"region_aggregate": "src/repro/kernels/region_aggregate.py:75",
             "ranl_update": "src/repro/kernels/region_aggregate.py:138",
             "flash_attention": "src/repro/kernels/flash_attention.py:77",
@@ -277,7 +293,9 @@ REPLACES = {"region_aggregate": "src/repro/kernels/region_aggregate.py:75",
             "chol_update": "src/repro/core/compression.py:303",
             "flash_attention_bwd": "src/repro/models/attention.py:50",
             "rwkv_wkv_bwd": "src/repro/models/rwkv.py:65",
-            "masked_aggregate": "src/repro/optim/ranl_llm.py:162"}
+            "masked_aggregate": "src/repro/optim/ranl_llm.py:162",
+            "grouped_matmul": "src/repro/models/moe.py:75",
+            "grouped_matmul_bwd": "src/repro/models/moe.py:75"}
 # main-path shapes (N, D) each kernel sees: dense rounds (K1), diag (K2)
 MAIN_SHAPE = {"region_aggregate": (32, 8192), "ranl_update": (32, 4096)}
 SEEDS = 8                       # the batch engine's seeds (batch_* phases)
@@ -291,6 +309,13 @@ POD_ROW_SHAPES = ((2, 16, 8192), (4, 8, 4096), (SEEDS * 4, 8, 4096))
 # rwkv6-3b n12's embedding
 MASKED_SHAPES = {"phi4_head_n4": (4, 200064 * 3072),
                  "rwkv6_embed_n12": (12, 65536 * 2560)}
+# the grouped product at the AFMoE cell: (rows, routed rows, experts held)
+# and the two (K, N) of its products, gate/up and down
+GMM_ROWS = (32768, 8192, 32)
+GMM_SHAPES = ((2048, 1024), (1024, 2048))
+# the grouped product against its plain version, x the largest entry: the
+# same f32 sums in another order; TF32's 10-bit products miss it by far
+GMM_RTOL = 1e-5
 # K2 on a model shard's d-slice (the 2-D engine on two model ranks): x and
 # hdiag are the second half of (2·D,) vectors, G, M, C (N, D) of their own
 SLICE_SHAPE = (32, 2048)
@@ -577,6 +602,188 @@ def phase_masked_aggregate(torch, report):
     row.update(ms=head["ms"], plain_ms=head["plain_ms"],
                bound_ms=head["bound_ms"], shape=head["shape"])
     report["masked_aggregate"] = row
+
+
+def gmm_inputs(torch, K, N, groups, gen):
+    """x (rows, K), w (experts, K, N), dy (rows, N) on the card and int32
+    offsets of ``groups``: "even", "skewed" (one expert a fifth of the
+    routed rows) or "empty" (even, expert 3 empty)."""
+    rows, routed, E = GMM_ROWS
+    share = torch.ones(E, device="cuda")
+    if groups == "skewed":
+        share = torch.rand(E, device="cuda", generator=gen)
+        share[7] = share.sum() / 4
+    elif groups == "empty":
+        share[3] = 0
+    sizes = (share / share.sum() * routed).long()
+    offsets = torch.zeros(E + 1, dtype=torch.int32, device="cuda")
+    offsets[1:] = torch.cumsum(sizes, 0)
+    return (torch.randn(rows, K, device="cuda", generator=gen),
+            torch.randn(E, K, N, device="cuda", generator=gen),
+            torch.randn(rows, N, device="cuda", generator=gen), offsets)
+
+
+def gmm_plain(torch, bounds):
+    """The plain per-group loop at host ``bounds`` (no host read, so a
+    CUDA graph can hold it): (forward, dx, dw)."""
+    def fwd(x, w):
+        y = x.new_zeros((x.shape[0], w.shape[2]))
+        for g in range(w.shape[0]):
+            if bounds[g + 1] > bounds[g]:
+                y[bounds[g]:bounds[g + 1]] = x[bounds[g]:bounds[g + 1]] @ w[g]
+        return y
+
+    def wgrad(x, dy, groups):
+        dw = x.new_zeros((groups, x.shape[1], dy.shape[1]))
+        for g in range(groups):
+            s, e = bounds[g], bounds[g + 1]
+            if e > s:
+                dw[g] = x[s:e].T @ dy[s:e]
+        return dw
+    return fwd, lambda dy, w: fwd(dy, w.transpose(1, 2)), wgrad
+
+
+def gmm_ops(routed, K, N, E):
+    """(bytes, FLOPs) of one grouped product over ``routed`` rows."""
+    return 4 * (routed * (K + N) + E * K * N), 2 * routed * K * N
+
+
+def phase_grouped_matmul(torch, report, launches):
+    """The grouped product and its backward products against their plain
+    versions at the cell's shapes, then timed beside the operations'
+    bound, the plain loop and the library's grouped product, then the
+    cell's expert layer once on the main path."""
+    from repro_torch.kernels import grouped_matmul as GM
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.time()
+    offs = torch.tensor([0, 3, 8], dtype=torch.int32, device="cuda")
+    GM.grouped_matmul(torch.ones(8, 4, device="cuda"),
+                      torch.ones(2, 4, 4, device="cuda"), offs)
+    torch.cuda.synchronize()
+    log(f"grouped_matmul build + first launch: {time.time() - t0:.2f} s")
+    errs = {"grouped_matmul": 0.0, "grouped_matmul_bwd": 0.0}
+    tf32_least = math.inf
+    checked = 0
+    for K, N in GMM_SHAPES:
+        for groups in ("even", "skewed", "empty"):
+            x, w, dy, offsets = gmm_inputs(torch, K, N, groups, gen)
+            got = (GM.grouped_matmul(x, w, offsets),
+                   GM.grouped_matmul_dx(dy, w, offsets),
+                   GM.grouped_matmul_wgrad(x, dy, offsets, w.shape[0]))
+            want = (ref.grouped_matmul_ref(x, w, offsets),
+                    ref.grouped_matmul_ref(dy, w.transpose(1, 2), offsets),
+                    ref.grouped_matmul_wgrad_ref(x, dy, offsets, w.shape[0]))
+            for name, a, b in zip(("forward", "dx", "dw"), got, want):
+                rel = float((a - b).abs().max() / b.abs().max())
+                if not rel <= GMM_RTOL:
+                    raise AssertionError(f"grouped_matmul {name} ({K}, {N}) "
+                                         f"{groups}: {rel:.3g} of the "
+                                         f"largest entry")
+                key = "grouped_matmul" if name == "forward" else \
+                    "grouped_matmul_bwd"
+                errs[key] = max(errs[key], rel)
+            end = int(offsets[-1])
+            if torch.count_nonzero(got[0][end:]) or torch.count_nonzero(
+                    got[1][end:]):
+                raise AssertionError("grouped_matmul: a row outside every "
+                                     "group is not 0")
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = ref.grouped_matmul_ref(x, w, offsets)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            tf32_least = min(tf32_least, float((tf32 - want[0]).abs().max()
+                                               / want[0].abs().max()))
+            checked += 1
+            del x, w, dy, got, want, tf32
+    if not tf32_least > GMM_RTOL:
+        raise AssertionError(f"grouped_matmul: TF32 products within "
+                             f"{tf32_least:.3g}, inside GMM_RTOL")
+    log(f"grouped_matmul: forward, dx and dw within {errs} of the largest "
+        f"entry in {checked} cases (GMM_RTOL {GMM_RTOL}; TF32 products "
+        f"{tf32_least:.3g} at the least)")
+    rows, routed, E = GMM_ROWS
+    K, N = GMM_SHAPES[0]
+    x, w, dy, offsets = gmm_inputs(torch, K, N, "even", gen)
+    bounds = offsets.tolist()
+    nbytes, flops = gmm_ops(routed, K, N, E)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]) * 1e3
+    fwd, dx, wgrad = gmm_plain(torch, bounds)
+    times = {
+        "forward": device_ms(torch, GM.grouped_matmul, [(x, w, offsets)]),
+        "dx": device_ms(torch, GM.grouped_matmul_dx, [(dy, w, offsets)]),
+        "dw": device_ms(torch, GM.grouped_matmul_wgrad,
+                        [(x, dy, offsets, E)]),
+        "plain_forward": device_ms(torch, fwd, [(x, w)]),
+        "plain_dx": device_ms(torch, dx, [(dy, w)]),
+        "plain_dw": device_ms(torch, wgrad, [(x, dy, E)])}
+    library = None
+    try:        # the yardstick: PyTorch's private grouped product, which
+        # copies from the host and so stays out of a CUDA graph
+        a, o = x[:routed], offsets[1:]
+        for _ in range(3):
+            torch._grouped_mm(a, w, offs=o)
+        library = event_ms(torch, lambda: [torch._grouped_mm(a, w, offs=o)
+                                           for _ in range(TIMED_CALLS)])
+        library /= TIMED_CALLS
+    except Exception as e:      # noqa: BLE001 - absent or refusing f32
+        log(f"grouped_matmul: torch._grouped_mm not timed "
+            f"({type(e).__name__}: {e})")
+    log(f"grouped_matmul at ({rows} rows, {routed} routed over {E}) x "
+        f"({K}, {N}): forward {times['forward']:.4f} ms, dx "
+        f"{times['dx']:.4f}, dw {times['dw']:.4f} against a bound of "
+        f"{bound:.4f} ms each ({flops / 1e9:.1f} GFLOP at 67 TFLOP/s); "
+        f"plain {times['plain_forward']:.4f} / {times['plain_dx']:.4f} / "
+        f"{times['plain_dw']:.4f} ms; torch._grouped_mm {library}")
+    del x, w, dy
+    torch.cuda.empty_cache()
+    counts = gmm_main_path(torch, launches)
+    shape = [rows, routed, E, K, N]
+    report["grouped_matmul"] = {
+        "max_abs_err": errs["grouped_matmul"], "ms": times["forward"],
+        "plain_ms": times["plain_forward"], "bound_ms": bound,
+        "bound_by": "operations", "library_ms": library, "shape": shape,
+        "tf32_rel_err": tf32_least, "launches": counts}
+    report["grouped_matmul_bwd"] = {
+        "max_abs_err": errs["grouped_matmul_bwd"], "ms": times["dx"],
+        "plain_ms": times["plain_dx"], "bound_ms": bound,
+        "bound_by": "operations", "shape": shape, "dw_ms": times["dw"],
+        "plain_dw_ms": times["plain_dw"]}
+
+
+def gmm_main_path(torch, launches):
+    """The AFMoE cell's expert layer on one worker's 4096 tokens, forward
+    and backward, as one main-path run: 3 grouped products and 6
+    backward ones.  Returns its launch counts."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models.moe import apply_routed_moe, init_routed_moe
+    rows, routed, E = GMM_ROWS
+    cfg = ModelConfig(name="trinity-mini-layer", family="moe", num_layers=1,
+                      d_model=2048, num_heads=32, num_kv_heads=4, d_ff=1024,
+                      vocab_size=64, num_experts=E, router_experts=128,
+                      experts_per_token=8, score_func="sigmoid",
+                      route_norm=True, route_scale=2.826, shared_d_ff=1024,
+                      dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = init_routed_moe(cfg, gen)
+    for v in (*(v for k, v in params.items() if k != "shared"),
+              *params["shared"].values()):
+        v.requires_grad_(True)
+    x = torch.randn(1, rows // 8, 2048, device="cuda", generator=gen,
+                    requires_grad=True)
+
+    def layer():
+        out, _ = apply_routed_moe(params, x, cfg)
+        out.square().mean().backward()
+    _, secs, counts = counted(torch, launches, layer)
+    want = {**ZERO, "grouped_matmul": 3, "grouped_matmul_bwd": 6}
+    if counts != want:
+        raise AssertionError(f"expert layer: launches {counts}, expected "
+                             f"{want}")
+    log(f"grouped_matmul main path: the cell's expert layer, forward and "
+        f"backward on 4096 tokens, {secs:.3f} s with the first launch")
+    return counts
 
 
 def sync_time(torch, fn):
@@ -4089,6 +4296,8 @@ def main(argv=None) -> int:
             ("kernels", lambda: phase_kernels(torch, report)),
             ("masked_aggregate", lambda: phase_masked_aggregate(torch,
                                                                 report)),
+            ("grouped_matmul", lambda: phase_grouped_matmul(torch, report,
+                                                            launches)),
             ("kernels_attn_wkv", lambda: phase_attn_wkv(torch, report)),
             ("dense", lambda: phase_dense(torch, rt, report, launches)),
             ("diag", lambda: phase_diag(torch, rt, report, launches)),

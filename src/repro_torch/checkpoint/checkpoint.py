@@ -7,7 +7,8 @@ tree's leaves in the reference's order (sorted keys, the per-layer list
 stacked on a leading L axis), and ``manifest.json`` the step and each
 leaf's key, path (``layers/attn/wq``), shape and dtype.  bf16 leaves are
 written widened to f32 (exactly: numpy has no bf16 of its own); restore
-casts every leaf to the type of the tree it restores into.
+casts every leaf to the type of the tree it restores into.  A tree whose
+layers hold different leaves has no such layout, and is refused.
 """
 
 from __future__ import annotations
@@ -18,11 +19,13 @@ import os
 import numpy as np
 import torch
 
-from ..tree import get, leaf_paths, num_layers, rebuild, stacked, to_numpy
+from ..tree import (get, leaf_paths, num_layers, rebuild,
+                    require_uniform_layers, stacked, to_numpy)
 
 
 def save(tree, directory: str, *, step: int | None = None,
          shard: int = 0) -> str:
+    require_uniform_layers(tree, "a checkpoint")
     os.makedirs(directory, exist_ok=True)
     arrays = stacked(tree, to_numpy)
     payload = {}
@@ -52,6 +55,7 @@ def _tensor(arr, dtype_name: str):
 def restore(tree_like, directory: str, *, shard: int = 0):
     """Restore into the structure, types and devices of ``tree_like``
     (leaf count and shapes validated)."""
+    require_uniform_layers(tree_like, "a checkpoint")
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
     data = np.load(os.path.join(directory, f"shard_{shard}.npz"))

@@ -49,6 +49,61 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     source: str = ""
+    # --- AFMoE blocks (Trinity); each default leaves a configuration as
+    # it was.  A field a Hugging Face ``config.json`` has keeps its name.
+    layer_types: tuple = ()     # "sliding_attention" | "full_attention" a
+                                # layer; () = every layer alike
+    nope_global: bool = False   # no RoPE on the "full_attention" layers
+    attn_gate: bool = False     # attention output ⊙ sigmoid(x·wg)
+    sandwich_norm: bool = False  # RMSNorm after attention and the FFN too
+    mup_enabled: bool = False   # embedding scaled by √d_model
+    rms_norm_eps: float = 1e-6
+    num_dense_layers: int = 0   # leading layers with a dense SwiGLU FFN
+    dense_d_ff: int = 0         # their width (0: d_ff)
+    # the dropless routed-expert layer (``models.moe.apply_routed_moe``):
+    # sigmoid scores over ``router_experts`` outputs, of which experts
+    # [first_expert, first_expert + num_experts) are held here
+    score_func: str = "softmax"  # "sigmoid" selects that layer
+    router_experts: int = 0     # 0: num_experts (every expert held)
+    first_expert: int = 0
+    route_norm: bool = False    # the top-k scores renormalised to sum 1,
+    route_scale: float = 1.0    # then scaled
+    shared_d_ff: int = 0        # a shared expert's width (0: none)
+
+    def __post_init__(self):
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        kinds = {"sliding_attention", "full_attention"}
+        if self.layer_types and (len(self.layer_types) < self.num_layers
+                                 or not set(self.layer_types) <= kinds):
+            raise ValueError(f"layer_types must name one of {sorted(kinds)} "
+                             f"for each of the {self.num_layers} layers")
+        if self.score_func not in ("softmax", "sigmoid"):
+            raise ValueError(f"unknown score_func {self.score_func!r}")
+        if self.num_experts and not (
+                0 <= self.first_expert
+                and self.first_expert + self.num_experts <= self.routed):
+            raise ValueError(
+                f"experts [{self.first_expert}, {self.first_expert} + "
+                f"{self.num_experts}) are not all among the router's "
+                f"{self.routed}")
+
+    @property
+    def routed(self) -> int:
+        """The router's outputs: every expert of the layer, held or not."""
+        return self.router_experts or self.num_experts
+
+    def layer_attention(self, i: int, window: int = 0):
+        """(window, rope) of layer i: from ``layer_types`` where the
+        configuration has them, else ``window`` and RoPE on every layer."""
+        if not self.layer_types:
+            return window, True
+        if self.layer_types[i] == "sliding_attention":
+            return self.sliding_window, True
+        return 0, not self.nope_global
+
+    def dense_layer(self, i: int) -> bool:
+        """Whether layer i has a dense FFN (no experts)."""
+        return not self.num_experts or i < self.num_dense_layers
 
     @property
     def resolved_head_dim(self) -> int:

@@ -108,8 +108,10 @@ def model_params_from_numpy(cfg, tree, device=None, dtype=None):
 def params_to_numpy(cfg, params):
     """The port's model parameters -> the reference's layout: nested dicts
     of numpy arrays with the layers stacked on a leading L axis (the
-    inverse of ``model_params_from_numpy``; bf16 widens to f32)."""
-    from .tree import stacked, to_numpy
+    inverse of ``model_params_from_numpy``; bf16 widens to f32).  Every
+    layer must hold the same leaves."""
+    from .tree import require_uniform_layers, stacked, to_numpy
+    require_uniform_layers(params, "interop's stacked layout")
     if len(params["layers"]) != cfg.num_layers:
         raise ValueError(f"{cfg.name} has {cfg.num_layers} layers, the "
                          f"parameters {len(params['layers'])}")

@@ -17,9 +17,16 @@
       C++ (``csrc/masked_aggregate.cu``); it ports no Pallas kernel (the
       reference's is plain ``jnp``).
 
-flash_attention and rwkv_wkv carry gradients: ``ops`` wraps each in a
-``torch.autograd.Function`` whose backward is the backward kernel on the
-card and the plain backward (``ref.*_bwd_ref``) on the CPU.
+  grouped_matmul — y = x[rows of g] · w[g] over the groups of rows that
+      int32 offsets on the card give, and its backward's two products:
+      the experts held on one card of the dropless MoE layer.  CUDA C++
+      (``csrc/grouped_matmul.cu``); it ports no Pallas kernel.
+
+flash_attention, rwkv_wkv and grouped_matmul carry gradients: ``ops``
+wraps each in a ``torch.autograd.Function`` whose backward is the
+backward kernel on the card and the plain backward (``ref.*_bwd_ref``,
+``ref.grouped_matmul_ref`` and ``ref.grouped_matmul_wgrad_ref``) on the
+CPU.
 
 ``ops`` dispatches by device; ``ref`` holds the plain versions;
 ``LAUNCHES`` counts kernel launches; ``build`` compiles the CUDA sources.

@@ -48,7 +48,7 @@ def build_dir(module: Path = Path(__file__)) -> Path:
 
 BUILD_DIR = build_dir()
 SOURCES = ("flash_attention", "flash_attention_bwd", "rwkv_wkv",
-           "rwkv_wkv_bwd", "chol_update", "masked_aggregate")
+           "rwkv_wkv_bwd", "chol_update", "masked_aggregate", "grouped_matmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600.0

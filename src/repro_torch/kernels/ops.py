@@ -2,9 +2,10 @@
 the wrapper raises), a CPU tensor takes the plain version.  Nothing falls
 back from one to the other.
 
-flash_attention and rwkv_wkv carry gradients.  When grad mode is on and
-an input requires grad, the call goes through a ``torch.autograd.Function``
-(``_FlashAttention``, ``_RwkvWkv``): its forward is the kernel (or, on the
+flash_attention, rwkv_wkv and grouped_matmul carry gradients.  When grad
+mode is on and an input requires grad, the call goes through a
+``torch.autograd.Function`` (``_FlashAttention``, ``_RwkvWkv``,
+``_GroupedMatmul``): its forward is the kernel (or, on the
 CPU, the plain forward, recording no graph) and its backward the
 hand-written backward kernel (or the plain backward), from the saved
 inputs (and K3's output).  Otherwise the forward runs with no autograd
@@ -16,6 +17,7 @@ import torch
 
 from . import chol_update as _chol
 from . import flash_attention as _fa
+from . import grouped_matmul as _gmm
 from . import masked_aggregate as _ma
 from . import ref
 from . import region_aggregate as _k
@@ -127,3 +129,40 @@ def chol_update(L, V, alpha):
     if _on_cpu(L):
         return ref.chol_update_ref(L, V, alpha)
     return _chol.chol_update(L, V, alpha)
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """Saves x, w and the offsets; the backward is the dx product and the
+    weights' product, each one launch on the card."""
+    @staticmethod
+    def forward(ctx, x, w, offsets):
+        ctx.save_for_backward(x, w, offsets)
+        if _on_cpu(x):
+            return ref.grouped_matmul_ref(x, w, offsets)
+        return _gmm.grouped_matmul(x, w, offsets)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, offsets = ctx.saved_tensors
+        cpu = _on_cpu(x)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (ref.grouped_matmul_ref(dy, w.transpose(1, 2), offsets)
+                  if cpu else _gmm.grouped_matmul_dx(dy, w, offsets))
+        if ctx.needs_input_grad[1]:
+            dw = (ref.grouped_matmul_wgrad_ref(x, dy, offsets, w.shape[0])
+                  if cpu else _gmm.grouped_matmul_wgrad(x, dy, offsets,
+                                                        w.shape[0]))
+        return dx, dw, None
+
+
+def grouped_matmul(x, w, offsets):
+    """x (M, K), w (G, K, N), offsets (G+1,) int32 on x's device -> y
+    (M, N): rows [offsets[g], offsets[g+1]) of y are those rows of x
+    times w[g], a row outside every group 0 (``ref.grouped_matmul_ref``).
+    The kernel takes f32."""
+    if _wants_grad(x, w):
+        return _GroupedMatmul.apply(x, w, offsets)
+    if _on_cpu(x):
+        return ref.grouped_matmul_ref(x, w, offsets)
+    return _gmm.grouped_matmul(x, w, offsets)

@@ -65,6 +65,31 @@ def masked_aggregate_ref(G, mask, C):
     return g, C_new
 
 
+def grouped_matmul_ref(x, w, offsets):
+    """x (M, K), w (G, K, N), offsets (G+1,) int, non-decreasing ->
+    y (M, N): rows [offsets[g], offsets[g+1]) of y are those rows of x
+    times w[g]; a row outside every group is 0.  An empty group is
+    allowed."""
+    y = x.new_zeros((x.shape[0], w.shape[-1]))
+    b = offsets.tolist()
+    for g in range(w.shape[0]):
+        if b[g + 1] > b[g]:
+            y[b[g]:b[g + 1]] = x[b[g]:b[g + 1]] @ w[g]
+    return y
+
+
+def grouped_matmul_wgrad_ref(x, dy, offsets, groups: int):
+    """x (M, K), dy (M, N) -> dw (groups, K, N): dw[g] = x[rows of g]ᵀ ·
+    dy[rows of g], 0 for an empty group (the weights' gradient of
+    ``grouped_matmul_ref``)."""
+    dw = x.new_zeros((groups, x.shape[1], dy.shape[1]))
+    b = offsets.tolist()
+    for g in range(groups):
+        if b[g + 1] > b[g]:
+            dw[g] = x[b[g]:b[g + 1]].T @ dy[b[g]:b[g + 1]]
+    return dw
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         scale: float | None = None, return_lse: bool = False):
     """Full-softmax attention: the plain version of ``flash_attention``.

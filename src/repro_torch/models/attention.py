@@ -36,6 +36,8 @@ def init_attention(cfg, generator, dtype=torch.float32):
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((hd,), dtype=dtype, device=generator.device)
         p["k_norm"] = torch.ones((hd,), dtype=dtype, device=generator.device)
+    if cfg.attn_gate:
+        p["wg"] = dense_init(generator, (d, H * hd), dtype)
     return p
 
 
@@ -107,7 +109,8 @@ def blocked_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
 
 def apply_attention(params, x, cfg, positions, *, cache=None, pos=None,
                     window: int = 0, q_chunk: int = 1024,
-                    kv_chunk: int = 1024, return_cache: bool = False):
+                    kv_chunk: int = 1024, return_cache: bool = False,
+                    rope: bool = True):
     """Attention with optional KV cache.
 
     x: (B, S, d).  positions: (B, S) absolute positions of x tokens.
@@ -117,6 +120,9 @@ def apply_attention(params, x, cfg, positions, *, cache=None, pos=None,
     over the whole cache.  Without a cache, ``positions`` must be
     ``arange(S)`` for every row: that is what the kernel computes.
     return_cache: in prefill mode, also return the freshly-built cache.
+    rope: rotate q and k by position (False: no position encoding).
+    With ``cfg.attn_gate`` the heads' output is gated by sigmoid(x·wg)
+    before ``wo``.
     """
     B, S, d = x.shape
     hd = cfg.resolved_head_dim
@@ -126,10 +132,11 @@ def apply_attention(params, x, cfg, positions, *, cache=None, pos=None,
     k = (x @ params["wk"]).reshape(B, S, KV, hd)
     v = (x @ params["wv"]).reshape(B, S, KV, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"])
-        k = rms_norm(k, params["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+        q = rms_norm(q, params["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.rms_norm_eps)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if cache is not None:
@@ -158,8 +165,10 @@ def apply_attention(params, x, cfg, positions, *, cache=None, pos=None,
             new_cache = {"k": k, "v": v,
                          "slot_pos": positions[0].to(torch.int32)}
 
-    out = out.reshape(B, S, H * hd) @ params["wo"]
-    return out, new_cache
+    out = out.reshape(B, S, H * hd)
+    if cfg.attn_gate:
+        out = out * torch.sigmoid(x @ params["wg"])
+    return out @ params["wo"], new_cache
 
 
 def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,

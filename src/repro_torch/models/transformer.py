@@ -18,7 +18,7 @@ import torch
 
 from .attention import apply_attention, init_attention, init_cache
 from .common import apply_swiglu, dense_init, embed_init, init_swiglu, rms_norm
-from .moe import apply_moe, init_moe
+from .moe import apply_moe, apply_routed_moe, init_moe, init_routed_moe
 from .rwkv import (apply_channel_mix, apply_time_mix, init_channel_mix,
                    init_rwkv_state, init_time_mix)
 from .ssm import apply_ssm, init_ssm, init_ssm_state
@@ -28,7 +28,10 @@ from .ssm import apply_ssm, init_ssm, init_ssm_state
 # init
 # --------------------------------------------------------------------------
 
-def init_layer(cfg, generator, dtype=torch.float32):
+def init_layer(cfg, generator, dtype=torch.float32, index: int = 0):
+    """Layer ``index``'s parameters: its FFN is dense or of experts by
+    ``cfg.dense_layer(index)``, so the layers of one model may hold
+    different leaves."""
     d = cfg.d_model
     dev = generator.device
     ones = lambda: torch.ones((d,), dtype=dtype, device=dev)  # noqa: E731
@@ -39,12 +42,17 @@ def init_layer(cfg, generator, dtype=torch.float32):
         }
     p = {"ln1": ones(), "attn": init_attention(cfg, generator, dtype),
          "ln2": ones()}
+    if cfg.sandwich_norm:
+        p["ln1_post"], p["ln2_post"] = ones(), ones()
     if cfg.family == "hybrid":
         p["ssm"] = init_ssm(cfg, generator, dtype)
-    if cfg.num_experts:
-        p["moe"] = init_moe(cfg, generator, dtype)
+    if cfg.dense_layer(index):
+        p["mlp"] = init_swiglu(generator, d, cfg.dense_d_ff or cfg.d_ff,
+                               dtype)
+    elif cfg.score_func == "sigmoid":
+        p["moe"] = init_routed_moe(cfg, generator, dtype)
     else:
-        p["mlp"] = init_swiglu(generator, d, cfg.d_ff, dtype)
+        p["moe"] = init_moe(cfg, generator, dtype)
     return p
 
 
@@ -63,8 +71,8 @@ def init_model(cfg, generator, dtype=torch.float32):
     if cfg.modality == "vision":
         params["vision_proj"] = dense_init(
             generator, (cfg.vision_embed_dim, d), dtype)
-    params["layers"] = [init_layer(cfg, generator, dtype)
-                        for _ in range(cfg.num_layers)]
+    params["layers"] = [init_layer(cfg, generator, dtype, i)
+                        for i in range(cfg.num_layers)]
     params["final_norm"] = torch.ones((d,), dtype=dtype,
                                       device=generator.device)
     return params
@@ -75,8 +83,10 @@ def init_model(cfg, generator, dtype=torch.float32):
 # --------------------------------------------------------------------------
 
 def apply_block(lp, x, cfg, *, mode, layer_cache, positions, pos, window,
-                q_chunk, kv_chunk):
-    """Returns (x, cache_out_or_None, aux_scalar)."""
+                q_chunk, kv_chunk, rope=True):
+    """Returns (x, cache_out_or_None, aux_scalar).  ``window`` and
+    ``rope``: this layer's attention (``ModelConfig.layer_attention``)."""
+    eps = cfg.rms_norm_eps
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     decode = mode == "decode" and layer_cache is not None
 
@@ -98,13 +108,15 @@ def apply_block(lp, x, cfg, *, mode, layer_cache, positions, pos, window,
         return x, cache_out, aux
 
     # --- attention (+ the hybrid's parallel SSM branch) ---
-    h_in = rms_norm(x, lp["ln1"])
+    h_in = rms_norm(x, lp["ln1"], eps)
     attn_cache = None if layer_cache is None else layer_cache.get("attn")
     attn_out, attn_cache_out = apply_attention(
         lp["attn"], h_in, cfg, positions,
         cache=attn_cache if mode == "decode" else None,
         pos=pos, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
-        return_cache=(mode == "prefill"))
+        return_cache=(mode == "prefill"), rope=rope)
+    if cfg.sandwich_norm:
+        attn_out = rms_norm(attn_out, lp["ln1_post"], eps)
     if cfg.family == "hybrid":
         ssm_out, ssm_state_out = apply_ssm(
             lp["ssm"], h_in, cfg,
@@ -113,11 +125,15 @@ def apply_block(lp, x, cfg, *, mode, layer_cache, positions, pos, window,
     else:
         x = x + attn_out
 
-    h2 = rms_norm(x, lp["ln2"])
-    if cfg.num_experts:
-        ffn_out, aux = apply_moe(lp["moe"], h2, cfg)
-    else:
+    h2 = rms_norm(x, lp["ln2"], eps)
+    if "mlp" in lp:
         ffn_out = apply_swiglu(lp["mlp"], h2)
+    elif cfg.score_func == "sigmoid":
+        ffn_out, aux = apply_routed_moe(lp["moe"], h2, cfg)
+    else:
+        ffn_out, aux = apply_moe(lp["moe"], h2, cfg)
+    if cfg.sandwich_norm:
+        ffn_out = rms_norm(ffn_out, lp["ln2_post"], eps)
     x = x + ffn_out
 
     cache_out = None
@@ -140,6 +156,8 @@ def embed_inputs(params, batch, cfg):
                 for c in range(cfg.num_codebooks))
     else:
         h = params["embed"][tokens]
+    if cfg.mup_enabled:
+        h = h * cfg.d_model ** 0.5
     if cfg.modality == "vision" and "patch_embeds" in batch:
         # the projected patches written over the first positions
         pe, w = batch["patch_embeds"], params["vision_proj"]
@@ -185,7 +203,8 @@ def forward(params, batch, cfg, *, mode="train", cache=None, window=None,
     mode: train | prefill | decode.  decode consumes ``cache`` and returns
     an updated copy; prefill returns a fresh cache.
     window: sliding window (None -> cfg default: hybrid archs run with
-    their configured window; others full attention).
+    their configured window; others full attention).  A configuration
+    with ``layer_types`` sets each layer's window (and RoPE) itself.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -207,15 +226,16 @@ def forward(params, batch, cfg, *, mode="train", cache=None, window=None,
     cache_outs = []
     for i, lp in enumerate(params["layers"]):
         lc = None if layer_caches is None else _layer(layer_caches, i)
+        w, rope = cfg.layer_attention(i, window)
         x, c, a = apply_block(lp, x, cfg, mode=mode, layer_cache=lc,
-                              positions=positions, pos=pos, window=window,
-                              q_chunk=q_chunk, kv_chunk=kv_chunk)
+                              positions=positions, pos=pos, window=w,
+                              q_chunk=q_chunk, kv_chunk=kv_chunk, rope=rope)
         aux = aux + a
         if c is not None:
             cache_outs.append(c)
     new_cache = {"layers": _stack(cache_outs)} if cache_outs else None
 
-    x = rms_norm(x, params["final_norm"])
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if not compute_logits:
         return x, new_cache, aux
     return lm_logits(params, x, cfg), new_cache, aux

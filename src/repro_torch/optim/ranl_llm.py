@@ -18,7 +18,11 @@ stacks layers on a leading axis; the four places where that layout shows
 reproduce the stacked one: region ids (``region_layout``), the Newton
 step's statistics over all layers of a leaf (``newton_step``), int8
 scales per (worker, layer) (``quantize_memory(layer=True)``) and the
-per-region parameter counts.
+per-region parameter counts.  The layers may hold different leaves (the
+paper's sub-model diversity: dense and expert FFNs in one model): each
+layer is still one region, and a per-layer leaf's Newton statistics run
+over the layers that hold it (``tree.holders``).  The mesh path keeps
+the stacked layout and refuses such a model.
 
 With ``mesh=`` (a ``DeviceMesh`` with a "data" dimension, and "pod" and
 "model" ones where wanted; ``launch.mesh.make_engine_mesh``) the step
@@ -66,7 +70,8 @@ from ..kernels import ops
 from ..kernels.ref import masked_aggregate_ref as masked_aggregate  # noqa: F401
 from ..launch.shard import BATCH, MODEL, local_shard, model_dim
 from ..obs.trace import count, span
-from ..tree import get, leaf_paths, leaves, num_layers, put, rebuild
+from ..tree import (get, holders, leaf_paths, leaves, num_layers, put,
+                    rebuild, require_uniform_layers)
 from .first_order import value_and_grad
 
 
@@ -116,18 +121,19 @@ def region_layout(params):
 
     Returns (num_regions, num_layer_regions, leaf_infos), leaf_infos
     aligned with ``tree.leaf_paths(params)``: ("layer", L) or
-    ("glue", region_id).  Every per-layer dict must hold the same leaves
-    at the same shapes, as the reference's stacked leaves must agree on
-    their depth: else layer q of one leaf and of another would not share
-    a region."""
+    ("glue", region_id).  The per-layer dicts may hold different leaves
+    (region q is layer q's, whichever it holds), but a leaf held by
+    several layers must have one shape in all of them, as the reference's
+    stacked leaf has."""
     layers = params.get("layers", [])
-    shapes = [[(keys, tuple(get(lp, keys).shape))
-               for keys, _ in leaf_paths(lp)] for lp in layers]
-    if any(s != shapes[0] for s in shapes):
-        raise ValueError(
-            "region_layout: the per-layer dicts disagree on their leaves or "
-            "shapes — region ids would mis-align across leaves. Give every "
-            "layer the same tensors, or move the odd one out of 'layers'.")
+    for keys, layered in leaf_paths(params):
+        if layered and len({tuple(get(params, keys, q).shape)
+                            for q in holders(params, keys)}) > 1:
+            raise ValueError(
+                f"region_layout: the per-layer dicts disagree on the shape "
+                f"of {'/'.join(keys)} — one leaf of several layers is one "
+                f"group of the Newton step. Give it one shape, or another "
+                f"name where it differs.")
     L = len(layers)
     infos, next_glue = [], L
     for _, layered in leaf_paths(params):
@@ -146,7 +152,7 @@ def region_param_counts(params):
     counts = [0] * num_regions
     for (keys, layered), (_, v) in zip(leaf_paths(params), infos):
         if layered:
-            for q in range(L):
+            for q in holders(params, keys):
                 counts[q] += get(params, keys, q).numel()
         else:
             counts[v] += get(params, keys).numel()
@@ -301,11 +307,11 @@ def aggregate(G, memory, masks, params, cfg: RanlLLMConfig):
     copy of it is made.  An int8 memory is decoded to G's type ahead of
     the combine and its new memory encoded after it (spans
     ``ranl.memory_decode``/``ranl.memory_encode``)."""
-    _, L, infos = region_layout(params)
+    _, _, infos = region_layout(params)
     lmasks = leaf_masks(masks, infos, cfg.protect_glue)
     g, c_new, gsq = {}, {}, {}
     for (keys, layered), lm in zip(leaf_paths(params), lmasks):
-        for layer in (range(L) if layered else (None,)):
+        for layer in (holders(params, keys) if layered else (None,)):
             Gl = get(G, keys, layer)
             put(G, keys, layer, None)
             if cfg.precond_beta > 0.0:
@@ -334,12 +340,12 @@ def aggregate(G, memory, masks, params, cfg: RanlLLMConfig):
 def newton_step(params, g, precond, cfg: RanlLLMConfig):
     """x − scale·lr·g / max(h, μ + μ_rel·mean h), per reference leaf: the
     mean and the trust ratio's norms ‖Δ‖, ‖p‖ are over all layers of a
-    per-layer leaf together (the reference's stacked leaf), and
+    per-layer leaf together (the reference's stacked leaf; the layers
+    that hold it), and
     scale = min(1, trust_ratio·(‖p‖ + 1) / ‖Δ‖)."""
-    L = num_layers(params)
     new = {}
     for keys, layered in leaf_paths(params):
-        idx = range(L) if layered else (None,)
+        idx = holders(params, keys) if layered else (None,)
         ps = [get(params, keys, i) for i in idx]
         hs = [get(precond, keys, i) for i in idx]
         mean_h = sum(h.sum() for h in hs) / sum(h.numel() for h in hs)
@@ -456,6 +462,7 @@ class _Mesh:
         if not isinstance(mesh, DeviceMesh):
             raise TypeError(f"mesh must be a torch.distributed DeviceMesh, "
                             f"got {type(mesh).__name__}")
+        require_uniform_layers(params, "the mesh path")
         names = tuple(mesh.mesh_dim_names or ())
         self.plane = tuple(a for a in BATCH if a in names)
         if not self.plane:

@@ -7,6 +7,11 @@ which sorts dict keys.  These helpers give every leaf its reference path
 (``("layers", "attn", "wq")``) and walk the leaves in the reference's
 order, so that region ids, checkpoints and interop line up with it.  A
 ``{"q", "scale"}`` dict (an int8-encoded leaf) counts as one leaf.
+
+The layers of one model may hold different leaves (dense and expert
+FFNs): a per-layer leaf then belongs to the layers that hold it
+(``holders``), and a stacked layout, which has one depth for every leaf,
+refuses such a tree (``require_uniform_layers``).
 """
 
 from __future__ import annotations
@@ -22,13 +27,16 @@ def is_quantized(node) -> bool:
 def leaf_paths(tree) -> list[tuple[tuple[str, ...], bool]]:
     """[(keys, layered)] in the reference's order: dict keys sorted at
     every level; a per-layer list stands for one stacked tree, walked as
-    its first element, and its leaves are ``layered``."""
+    its first element (where its layers differ, the union of their
+    leaves, sorted), and its leaves are ``layered``."""
     out = []
 
     def walk(node, keys, layered):
         if isinstance(node, list):
-            if node:
-                walk(node[0], keys, True)
+            each = [[k for k, _ in leaf_paths(x)] for x in node]
+            if any(e != each[0] for e in each):
+                each[0] = sorted(set().union(*each))
+            out.extend((keys + k, True) for k in (each[0] if each else ()))
         elif isinstance(node, dict) and not is_quantized(node):
             for k in sorted(node):
                 walk(node[k], keys + (k,), layered)
@@ -36,6 +44,39 @@ def leaf_paths(tree) -> list[tuple[tuple[str, ...], bool]]:
             out.append((keys, layered))
     walk(tree, (), False)
     return out
+
+
+def _has(node, keys) -> bool:
+    for k in keys:
+        if not isinstance(node, dict) or is_quantized(node) or k not in node:
+            return False
+        node = node[k]
+    return True
+
+
+def holders(tree, keys) -> list[int]:
+    """The layers that hold the per-layer leaf at ``keys`` (every layer
+    where all hold the same leaves); [] for a leaf outside the list."""
+    node = tree
+    for i, k in enumerate(keys):
+        node = node[k]
+        if isinstance(node, list):
+            return [j for j, x in enumerate(node) if _has(x, keys[i + 1:])]
+    return []
+
+
+def require_uniform_layers(tree, what: str):
+    """Raise where the per-layer dicts of ``tree`` hold different leaves:
+    ``what`` stacks the layers on one leading axis, which needs every
+    layer to hold every leaf."""
+    L = num_layers(tree)
+    for keys, layered in leaf_paths(tree):
+        if layered and len(holders(tree, keys)) != L:
+            raise ValueError(
+                f"{what} stacks the layers, but only layers "
+                f"{holders(tree, keys)} of {L} hold {'/'.join(keys)}: the "
+                f"per-layer dicts differ in their leaves (a model with "
+                f"dense and expert layers)")
 
 
 def get(tree, keys, layer=None):
@@ -78,7 +119,7 @@ def leaves(tree) -> list:
     """Every leaf (each layer's apart), in the reference's order."""
     out = []
     for keys, layered in leaf_paths(tree):
-        layers = range(num_layers(tree)) if layered else (None,)
+        layers = holders(tree, keys) if layered else (None,)
         out += [get(tree, keys, i) for i in layers]
     return out
 
@@ -87,10 +128,9 @@ def from_leaves(like, values):
     """The inverse of ``leaves``: a tree shaped like ``like`` holding
     ``values`` (one a leaf, each layer's apart, in the reference's
     order)."""
-    L = num_layers(like)
     it = iter(values)
     flat = {(keys, layer): next(it) for keys, layered in leaf_paths(like)
-            for layer in (range(L) if layered else (None,))}
+            for layer in (holders(like, keys) if layered else (None,))}
     return rebuild(like, lambda keys, layer: flat[keys, layer])
 
 
@@ -118,7 +158,8 @@ def to_numpy(t):
 def stacked(tree, convert=lambda t: t):
     """The reference's layout: a nested dict whose per-layer leaves are
     stacked on a leading L axis (``torch.stack``), each leaf passed
-    through ``convert``."""
+    through ``convert``.  Every layer must hold the same leaves."""
+    require_uniform_layers(tree, "stacked")
     L = num_layers(tree)
     out = {}
     for keys, layered in leaf_paths(tree):
