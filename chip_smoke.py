@@ -210,6 +210,15 @@ memory, with all, some, one and no workers trained: C' and g bit-equal;
 then timed at the two cells' shapes beside the (8N + 4) P byte bound and
 the plain version's time.
 
+newton_step (run after grouped_matmul): RANL's Newton step, three
+launches over every leaf, against its plain version on the card at the
+phi4-mini cells' leaf set (2 layers, 815.9 M params) and trinity-mini's
+(6 layers of two kinds, 1.276 B): the sums within NEWTON_SUM_RTOL of
+torch's, p' bit-equal to the plain formula given the kernels' floor and
+scale, two calls bit-equal; then timed (CUDA events behind a sleep of
+the card, so the host's launches are queued first) beside the 32 bytes
+a parameter bound and the plain version's time.
+
 grouped_matmul (run after masked_aggregate): the expert layer's grouped
 f32 product and its two backward products (``grouped_matmul_bwd``: dx
 and dw) against their plain versions on the card at the AFMoE cell's
@@ -263,7 +272,8 @@ L2_BYTES = 50 << 20              # H100 L2
 TIMED_CALLS = 20
 KERNELS = ("region_aggregate", "ranl_update", "flash_attention", "rwkv_wkv",
            "chol_update", "flash_attention_bwd", "rwkv_wkv_bwd",
-           "masked_aggregate", "grouped_matmul", "grouped_matmul_bwd")
+           "masked_aggregate", "grouped_matmul", "grouped_matmul_bwd",
+           "newton_step")
 ZERO = {name: 0 for name in KERNELS}
 SOURCES = {"region_aggregate": "src/repro_torch/kernels/region_aggregate.py",
            "ranl_update": "src/repro_torch/kernels/region_aggregate.py",
@@ -274,18 +284,21 @@ SOURCES = {"region_aggregate": "src/repro_torch/kernels/region_aggregate.py",
            "rwkv_wkv_bwd": "src/repro_torch/csrc/rwkv_wkv_bwd.cu",
            "masked_aggregate": "src/repro_torch/csrc/masked_aggregate.cu",
            "grouped_matmul": "src/repro_torch/csrc/grouped_matmul.cu",
-           "grouped_matmul_bwd": "src/repro_torch/csrc/grouped_matmul.cu"}
+           "grouped_matmul_bwd": "src/repro_torch/csrc/grouped_matmul.cu",
+           "newton_step": "src/repro_torch/csrc/newton_step.cu"}
 ROUTES = {"region_aggregate": "triton", "ranl_update": "triton",
           "flash_attention": "cuda", "rwkv_wkv": "cuda",
           "chol_update": "cuda", "flash_attention_bwd": "cuda",
           "rwkv_wkv_bwd": "cuda", "masked_aggregate": "cuda",
-          "grouped_matmul": "cuda", "grouped_matmul_bwd": "cuda"}
+          "grouped_matmul": "cuda", "grouped_matmul_bwd": "cuda",
+          "newton_step": "cuda"}
 # chol_update ports no Pallas kernel: it replaces the reference's rank-1
 # sweep, a compiled lax.scan.  No Pallas kernel has a backward: the two
 # backward kernels replace XLA's autodiff of the reference's attention
 # and checkpointed wkv scan.  masked_aggregate ports none either: the
 # reference's deep-net aggregate is plain jnp.  Nor does grouped_matmul:
-# the reference's MoE multiplies a capacity buffer by einsum.
+# the reference's MoE multiplies a capacity buffer by einsum, nor
+# newton_step: the reference's Newton step is plain jnp.
 REPLACES = {"region_aggregate": "src/repro/kernels/region_aggregate.py:75",
             "ranl_update": "src/repro/kernels/region_aggregate.py:138",
             "flash_attention": "src/repro/kernels/flash_attention.py:77",
@@ -295,7 +308,8 @@ REPLACES = {"region_aggregate": "src/repro/kernels/region_aggregate.py:75",
             "rwkv_wkv_bwd": "src/repro/models/rwkv.py:65",
             "masked_aggregate": "src/repro/optim/ranl_llm.py:162",
             "grouped_matmul": "src/repro/models/moe.py:75",
-            "grouped_matmul_bwd": "src/repro/models/moe.py:75"}
+            "grouped_matmul_bwd": "src/repro/models/moe.py:75",
+            "newton_step": "src/repro/optim/ranl_llm.py:384"}
 # main-path shapes (N, D) each kernel sees: dense rounds (K1), diag (K2)
 MAIN_SHAPE = {"region_aggregate": (32, 8192), "ranl_update": (32, 4096)}
 SEEDS = 8                       # the batch engine's seeds (batch_* phases)
@@ -309,6 +323,15 @@ POD_ROW_SHAPES = ((2, 16, 8192), (4, 8, 4096), (SEEDS * 4, 8, 4096))
 # rwkv6-3b n12's embedding
 MASKED_SHAPES = {"phi4_head_n4": (4, 200064 * 3072),
                  "rwkv6_embed_n12": (12, 65536 * 2560)}
+# the Newton step's leaf sets: the phi4-mini cells' model (2 layers) and
+# the AFMoE cell's (6 layers of two kinds, bench/configs/trinity-mini.json)
+NEWTON_ARCHS = ("phi4-mini-3.8b", "trinity-mini")
+# its bytes a parameter: a pass over h, then two over p, g and h (one
+# writing p')
+NEWTON_BYTES = 32
+# its sums against torch.sum's: each a sum of non-negative terms, so
+# either order is within its longest chain of additions (~650) x 2^-24
+NEWTON_SUM_RTOL = 1e-4
 # the grouped product at the AFMoE cell: (rows, routed rows, experts held)
 # and the two (K, N) of its products, gate/up and down
 GMM_ROWS = (32768, 8192, 32)
@@ -602,6 +625,123 @@ def phase_masked_aggregate(torch, report):
     row.update(ms=head["ms"], plain_ms=head["plain_ms"],
                bound_ms=head["bound_ms"], shape=head["shape"])
     report["masked_aggregate"] = row
+
+
+def newton_tree(torch, arch):
+    """The cell's model at full width on the card (phi4-mini cut to 2
+    layers; trinity-mini as its configuration file states it), with an
+    aggregate g (normal) and a curvature h (squared normal)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import init_model
+    from repro_torch.tree import get, rebuild
+    if arch == "trinity-mini":
+        with open(os.path.join(HERE, "bench", "configs",
+                               "trinity-mini.json")) as f:
+            raw = json.load(f)
+        names = {f.name for f in dataclasses.fields(ModelConfig)}
+        cfg = ModelConfig(**{k: v for k, v in raw.items() if k in names})
+    else:
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=TRAIN["layers"])
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    params = init_model(cfg, gen, torch.float32)
+
+    def like(fn):
+        return rebuild(params, lambda keys, layer: fn(torch.randn(
+            get(params, keys, layer).shape, device="cuda", generator=gen)))
+    return params, like(lambda x: x), like(lambda x: x * x)
+
+
+def newton_device_ms(torch, fn):
+    """One call's time on the card: CUDA events around it, queued behind
+    a 0.2 s sleep of the card so that the host's launches (the table,
+    the plain version's many kernels) are all queued before the first
+    event; the median of ``TIMED_CALLS`` // 2 calls."""
+    fn()
+    times = []
+    for _ in range(TIMED_CALLS // 2):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(0.2 * 1.98e9))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_newton_step(torch, report):
+    """The Newton step's kernels against the plain version on the card at
+    the phi4-mini and trinity-mini cells' leaf sets: the sums within
+    ``NEWTON_SUM_RTOL`` of torch's, p' bit-equal to the plain formula
+    given the kernels' floor and scale, two calls bit-equal, three
+    launches a call; then each timed beside the 32-byte bound."""
+    from repro_torch.kernels import LAUNCHES, ref
+    from repro_torch.kernels import newton_step as NS
+    from repro_torch.optim.ranl_llm import _groups
+    t0 = time.time()
+    x = torch.randn(4096, device="cuda")
+    NS.newton_step([[x]], [[x]], [[x * x]], lr=1.0, mu=1e-4, mu_rel=0.05,
+                   trust=0.1)
+    torch.cuda.synchronize()
+    log(f"newton_step build + first launch: {time.time() - t0:.2f} s")
+    hyper = dict(lr=1.0, mu=1e-4, mu_rel=0.05, trust=0.1)
+    row = {"max_abs_err": 0.0}
+    for arch in NEWTON_ARCHS:
+        params, g, h = newton_tree(torch, arch)
+        _, (ps, gs, hs) = _groups(params, params, g, h)
+        del params, g, h
+        n = sum(t.numel() for grp in ps for t in grp)
+        before = LAUNCHES["newton_step"]
+        new, stats = NS.newton_step(ps, gs, hs, **hyper)
+        if LAUNCHES["newton_step"] != before + 3:
+            raise AssertionError(f"newton_step {arch}: "
+                                 f"{LAUNCHES['newton_step'] - before} "
+                                 f"launches, expected 3")
+        _, want = ref.newton_step_ref(ps, gs, hs, **hyper)
+        rel = ((stats - want).abs() / want.abs()).max().item()
+        if not rel <= NEWTON_SUM_RTOL:
+            raise AssertionError(f"newton_step {arch}: sums {rel:.3e} off "
+                                 f"torch's")
+        for j, (pg, gg, hg, og) in enumerate(zip(ps, gs, hs, new)):
+            scale = torch.clamp_max(
+                hyper["trust"] * (torch.sqrt(stats[j, 2]) + 1.0)
+                / torch.clamp_min(torch.sqrt(stats[j, 1]), 1e-20), 1.0)
+            for p, gl, hl, o in zip(pg, gg, hg, og):
+                if not torch.equal(o, ref.newton_update_ref(
+                        p, gl, hl, stats[j, 0], scale, hyper["lr"])):
+                    raise AssertionError(f"newton_step {arch} group {j}: "
+                                         f"p' differs from the plain "
+                                         f"formula's")
+        again, stats2 = NS.newton_step(ps, gs, hs, **hyper)
+        if not (torch.equal(stats, stats2) and all(
+                torch.equal(a, b) for a, b in zip(sum(new, []),
+                                                  sum(again, [])))):
+            raise AssertionError(f"newton_step {arch}: two calls differ")
+        del new, again, want
+        torch.cuda.empty_cache()
+        ms = newton_device_ms(torch, lambda: NS.newton_step(ps, gs, hs,
+                                                            **hyper))
+        plain_ms = newton_device_ms(torch, lambda: ref.newton_step_ref(
+            ps, gs, hs, **hyper))
+        bound = NEWTON_BYTES * n / HBM_BYTES_PER_S * 1e3
+        row[arch] = {"params": n, "leaves": sum(len(grp) for grp in ps),
+                     "groups": len(ps), "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "sums_max_rel_err": rel}
+        log(f"newton_step at {arch} ({n} params, {row[arch]['leaves']} "
+            f"leaves in {len(ps)} groups): on the card {ms:.4f} ms "
+            f"({bound / ms:.1%} of its bound {bound:.4f} ms = {NEWTON_BYTES}"
+            f" B a parameter at 3.35 TB/s); plain {plain_ms:.4f} ms; sums "
+            f"within {rel:.2e} of torch's, p' bit-equal given floor and "
+            f"scale, two calls bit-equal")
+        del ps, gs, hs, stats, stats2
+        torch.cuda.empty_cache()
+    first = row[NEWTON_ARCHS[0]]
+    row.update(ms=first["ms"], plain_ms=first["plain_ms"],
+               bound_ms=first["bound_ms"], shape=[first["params"]])
+    report["newton_step"] = row
 
 
 def gmm_inputs(torch, K, N, groups, gen):
@@ -3134,24 +3274,26 @@ def phase_serve(torch, report, launches, arch, expect):
 
 @contextlib.contextmanager
 def plain_twins():
-    """K3 and K4, forward and backward, and the masked aggregate through
-    their plain versions on the card (the wrappers' module functions
+    """K3 and K4, forward and backward, the masked aggregate and the
+    Newton step through their plain versions on the card (the wrappers' module functions
     swapped, and put back after)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import masked_aggregate as ma
+    from repro_torch.kernels import newton_step as ns
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv_wkv as wkv
     saved = (fa.flash_attention, fa.flash_attention_bwd, wkv.rwkv_wkv,
-             wkv.rwkv_wkv_bwd, ma.masked_aggregate)
+             wkv.rwkv_wkv_bwd, ma.masked_aggregate, ns.newton_step)
     (fa.flash_attention, fa.flash_attention_bwd, wkv.rwkv_wkv,
-     wkv.rwkv_wkv_bwd, ma.masked_aggregate) = (
+     wkv.rwkv_wkv_bwd, ma.masked_aggregate, ns.newton_step) = (
         ref.flash_attention_ref, ref.flash_attention_bwd_ref,
-        ref.rwkv_wkv_ref, ref.rwkv_wkv_bwd_ref, ref.masked_aggregate_ref)
+        ref.rwkv_wkv_ref, ref.rwkv_wkv_bwd_ref, ref.masked_aggregate_ref,
+        ref.newton_step_ref)
     try:
         yield
     finally:
         (fa.flash_attention, fa.flash_attention_bwd, wkv.rwkv_wkv,
-         wkv.rwkv_wkv_bwd, ma.masked_aggregate) = saved
+         wkv.rwkv_wkv_bwd, ma.masked_aggregate, ns.newton_step) = saved
 
 
 def serve_gaps(torch, cfg, seed, tol=None):
@@ -3561,10 +3703,12 @@ def phase_train(torch, report, launches, arch, kernel, seq):
     want = TRAIN["workers"] * TRAIN["layers"] * (1 + TRAIN["steps"])
     aggregates = len(leaves(params)) * TRAIN["steps"]
     if counts != {**ZERO, kernel: want, f"{kernel}_bwd": want,
-                  "masked_aggregate": aggregates}:
+                  "masked_aggregate": aggregates,
+                  "newton_step": 3 * TRAIN["steps"]}:
         raise AssertionError(f"train {arch}: launches {counts}, expected "
                              f"{kernel} and {kernel}_bwd: {want}, "
-                             f"masked_aggregate: {aggregates}")
+                             f"masked_aggregate: {aggregates}, newton_step: "
+                             f"{3 * TRAIN['steps']}")
     del params
     split = step_split(torch, p, state, batches[1], rcfg, loss_fn)
     del p, state
@@ -3930,10 +4074,12 @@ def train_sharded_world_of_one(torch, report, launches):
                                  f"train contract: {rep['violations'][:3]}")
         want = TRAIN["workers"] * TRAIN["layers"] * (1 + TRAIN_SHARDED_STEPS)
         if counts != {**ZERO, "flash_attention": want,
-                      "flash_attention_bwd": want}:
+                      "flash_attention_bwd": want,
+                      "newton_step": 3 * TRAIN_SHARDED_STEPS}:
             raise AssertionError(f"train_sharded (a): launches {counts}, "
                                  f"expected flash_attention and its "
-                                 f"backward: {want}")
+                                 f"backward: {want}, newton_step: "
+                                 f"{3 * TRAIN_SHARDED_STEPS}")
         del p, state
         torch.cuda.empty_cache()
     finally:
@@ -4144,11 +4290,12 @@ def train_sharded_two_ranks(torch, report, launches):
                                            else 1)
             want = n_local * TRAIN_SHARDED_CUT["layers"] * (1 + steps)
             if {**ZERO, **got} != {**ZERO, "flash_attention": want,
-                                   "flash_attention_bwd": want}:
+                                   "flash_attention_bwd": want,
+                                   "newton_step": 3 * steps}:
                 raise AssertionError(f"train_sharded (b) {label} rank {i}: "
                                      f"launches {got}, expected "
                                      f"flash_attention and its backward: "
-                                     f"{want}")
+                                     f"{want}, newton_step: {3 * steps}")
             for name, v in got.items():
                 launches[name] += v
         share = [r[label]["persistent_bytes"] / a["unsharded_bytes"]
@@ -4298,6 +4445,7 @@ def main(argv=None) -> int:
                                                                 report)),
             ("grouped_matmul", lambda: phase_grouped_matmul(torch, report,
                                                             launches)),
+            ("newton_step", lambda: phase_newton_step(torch, report)),
             ("kernels_attn_wkv", lambda: phase_attn_wkv(torch, report)),
             ("dense", lambda: phase_dense(torch, rt, report, launches)),
             ("diag", lambda: phase_diag(torch, rt, report, launches)),

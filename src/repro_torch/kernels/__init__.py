@@ -16,6 +16,10 @@
       stored memory read once, g and the new memory written once.  CUDA
       C++ (``csrc/masked_aggregate.cu``); it ports no Pallas kernel (the
       reference's is plain ``jnp``).
+  newton_step — RANL's diagonal Newton step over every leaf of a round:
+      a pass over h, then two over p, g and h, one launch each.  CUDA C++
+      (``csrc/newton_step.cu``); it ports no Pallas kernel (the
+      reference's is plain ``jnp``).
 
   grouped_matmul — y = x[rows of g] · w[g] over the groups of rows that
       int32 offsets on the card give, and its backward's two products:

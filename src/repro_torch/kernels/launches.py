@@ -5,7 +5,7 @@ that it went through the kernels."""
 LAUNCHES = {"region_aggregate": 0, "ranl_update": 0, "flash_attention": 0,
             "rwkv_wkv": 0, "chol_update": 0, "flash_attention_bwd": 0,
             "rwkv_wkv_bwd": 0, "masked_aggregate": 0, "grouped_matmul": 0,
-            "grouped_matmul_bwd": 0}
+            "grouped_matmul_bwd": 0, "newton_step": 0}
 
 
 def reset_launches():

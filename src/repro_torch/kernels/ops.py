@@ -19,6 +19,7 @@ from . import chol_update as _chol
 from . import flash_attention as _fa
 from . import grouped_matmul as _gmm
 from . import masked_aggregate as _ma
+from . import newton_step as _ns
 from . import ref
 from . import region_aggregate as _k
 from . import rwkv_wkv as _wkv
@@ -54,6 +55,20 @@ def masked_aggregate(G, mask, C):
         return ref.masked_aggregate_ref(G, mask, C)
     return _ma.masked_aggregate(G, mask, C)
 
+
+
+def newton_step(ps, gs, hs, *, lr, mu, mu_rel, trust, hsum=None, pn2=None,
+                between=None):
+    """RANL's diagonal Newton step over groups of leaves (a per-layer leaf
+    of every layer that holds it, or one glue leaf) -> (the new leaves as
+    groups, stats (G, 4): floor, ‖Δ‖², ‖p‖², ‖g‖² a group); arguments as
+    ``ref.newton_step_ref``.  The kernels take f32 leaves."""
+    if _on_cpu(ps[0][0]):
+        return ref.newton_step_ref(ps, gs, hs, lr=lr, mu=mu, mu_rel=mu_rel,
+                                   trust=trust, hsum=hsum, pn2=pn2,
+                                   between=between)
+    return _ns.newton_step(ps, gs, hs, lr=lr, mu=mu, mu_rel=mu_rel,
+                           trust=trust, hsum=hsum, pn2=pn2, between=between)
 
 def _wants_grad(*inputs) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in inputs)

@@ -65,6 +65,63 @@ def masked_aggregate_ref(G, mask, C):
     return g, C_new
 
 
+
+def newton_update_ref(p, g, h, floor, scale, lr: float):
+    """One leaf of the Newton step from its group's floor and scale:
+    p − scale·Δ, Δ = lr·g / max(h, floor), in f32, returned in p's
+    type."""
+    d = lr * g.float() / torch.maximum(h, floor)
+    return (p.float() - scale * d).to(p.dtype)
+
+
+def newton_step_ref(ps, gs, hs, *, lr: float, mu: float, mu_rel: float,
+                    trust: float, hsum=None, pn2=None, between=None):
+    """RANL's diagonal Newton step over groups of leaves: the plain
+    version of ``newton_step``.
+
+    ps, gs, hs: lists of G groups, each a list of leaves (params, the
+    aggregate, the curvature), a group's statistics taken over all its
+    leaves together: floor = μ + μ_rel·mean h, Δ = lr·g / max(h, floor),
+    scale = min(1, trust·(‖p‖ + 1) / max(‖Δ‖, 1e-20)), p′ = p − scale·Δ.
+    ``hsum``: None, or an entry a group, None or (Σh over the whole leaf,
+    a 0-dim tensor; the count its mean divides by), for a leaf of which
+    each rank holds a shard.  ``pn2``: None, or an entry a group, None or
+    ‖p‖² as a 0-dim tensor (taken from the gathered leaf).
+    ``between(stats)`` runs once the sums are taken and before the
+    update, and may write ``stats`` in place (the mesh path's all-reduce
+    of ‖Δ‖² over "model").
+
+    Returns (the new leaves as groups, new tensors; stats (G, 4) f32, a
+    group's floor, ‖Δ‖², ‖p‖², ‖g‖²)."""
+    rows = []
+    for j, (pg, gg, hg) in enumerate(zip(ps, gs, hs)):
+        given = hsum[j] if hsum is not None else None
+        if given is None:
+            mean_h = sum(h.sum() for h in hg) / sum(h.numel() for h in hg)
+        else:
+            mean_h = given[0] / given[1]
+        floor = mu + mu_rel * mean_h
+        dn2 = sum(torch.sum(torch.square(lr * g.float()
+                                         / torch.maximum(h, floor)))
+                  for g, h in zip(gg, hg))
+        pn = pn2[j] if pn2 is not None else None
+        if pn is None:
+            pn = sum(torch.sum(torch.square(p.float())) for p in pg)
+        gn2 = sum(torch.sum(torch.square(g.float())) for g in gg)
+        rows.append(torch.stack([floor, dn2, pn, gn2]))
+    stats = torch.stack(rows)
+    if between is not None:
+        between(stats)
+    new = []
+    for j, (pg, gg, hg) in enumerate(zip(ps, gs, hs)):
+        floor, dn2, pn = stats[j, 0], stats[j, 1], stats[j, 2]
+        scale = torch.clamp_max(trust * (torch.sqrt(pn) + 1.0)
+                                / torch.clamp_min(torch.sqrt(dn2), 1e-20),
+                                1.0)
+        new.append([newton_update_ref(p, g, h, floor, scale, lr)
+                    for p, g, h in zip(pg, gg, hg)])
+    return new, stats
+
 def grouped_matmul_ref(x, w, offsets):
     """x (M, K), w (G, K, N), offsets (G+1,) int, non-decreasing ->
     y (M, N): rows [offsets[g], offsets[g+1]) of y are those rows of x

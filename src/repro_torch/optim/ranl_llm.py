@@ -337,28 +337,36 @@ def aggregate(G, memory, masks, params, cfg: RanlLLMConfig):
     return out(g), out(c_new), (out(gsq) if gsq else None)
 
 
+def _groups(params, *trees):
+    """[(keys, layers)] of the Newton step's groups (a per-layer leaf of
+    every layer that holds it, or one glue leaf) and, for each tree, its
+    leaves as groups."""
+    idx = [(keys, holders(params, keys) if layered else [None])
+           for keys, layered in leaf_paths(params)]
+    return idx, [[[get(t, keys, q) for q in qs] for keys, qs in idx]
+                 for t in trees]
+
+
+def _ungroup(params, idx, groups):
+    """A tree shaped like ``params`` from leaves given as ``_groups``
+    gives them."""
+    out = {(keys, q): t for (keys, qs), grp in zip(idx, groups)
+           for q, t in zip(qs, grp)}
+    return rebuild(params, lambda keys, layer: out[keys, layer])
+
+
 def newton_step(params, g, precond, cfg: RanlLLMConfig):
     """x − scale·lr·g / max(h, μ + μ_rel·mean h), per reference leaf: the
     mean and the trust ratio's norms ‖Δ‖, ‖p‖ are over all layers of a
     per-layer leaf together (the reference's stacked leaf; the layers
-    that hold it), and
-    scale = min(1, trust_ratio·(‖p‖ + 1) / ‖Δ‖)."""
-    new = {}
-    for keys, layered in leaf_paths(params):
-        idx = holders(params, keys) if layered else (None,)
-        ps = [get(params, keys, i) for i in idx]
-        hs = [get(precond, keys, i) for i in idx]
-        mean_h = sum(h.sum() for h in hs) / sum(h.numel() for h in hs)
-        floor = cfg.mu + cfg.mu_rel * mean_h
-        deltas = [cfg.lr * get(g, keys, i).float() / torch.maximum(h, floor)
-                  for i, h in zip(idx, hs)]
-        dn = torch.sqrt(sum(torch.sum(torch.square(d)) for d in deltas))
-        pn = torch.sqrt(sum(torch.sum(torch.square(p.float())) for p in ps))
-        scale = torch.clamp_max(cfg.trust_ratio * (pn + 1.0)
-                                / torch.clamp_min(dn, 1e-20), 1.0)
-        for i, p, d in zip(idx, ps, deltas):
-            new[keys, i] = (p.float() - scale * d).to(p.dtype)
-    return rebuild(params, lambda keys, layer: new[keys, layer])
+    that hold it), and scale = min(1, trust_ratio·(‖p‖ + 1) / ‖Δ‖).
+    ``ops.newton_step``: the kernels on the card (three launches for the
+    whole tree), the plain version on the CPU.  Returns (new params, ‖g‖
+    of the aggregate, from the same pass as ‖Δ‖)."""
+    idx, (ps, gs, hs) = _groups(params, params, g, precond)
+    new, stats = ops.newton_step(ps, gs, hs, lr=cfg.lr, mu=cfg.mu,
+                                 mu_rel=cfg.mu_rel, trust=cfg.trust_ratio)
+    return _ungroup(params, idx, new), torch.sqrt(stats[:, 3].sum())
 
 
 def _f32_mean(x):
@@ -425,11 +433,9 @@ def train_step(params, state, batch, rng, *, loss_fn, cfg: RanlLLMConfig,
                 (1.0 - beta) * get(precond, keys, layer)
                 + beta * get(gsq, keys, layer)))
         with span("ranl.newton", device=masks.device):
-            new_params = newton_step(params, g, precond, cfg)
+            new_params, gnorm = newton_step(params, g, precond, cfg)
         new_state = {"step": state["step"] + 1, "precond": precond,
                      "memory": C_new}
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                               for x in leaves(g)))
         metrics = {"loss": losses.mean(), "grad_norm": gnorm,
                    "coverage": _f32_mean(masks.any(dim=0)),
                    "uplink_frac": _f32_mean(masks)}
@@ -659,8 +665,10 @@ def _train_step_mesh(params, state, batch, step, masks, loss_fn, cfg, m):
                               for q in idx[keys]) for keys in cut])
              if cut else None)
     full, hparts = m.full(params, hpart)
+    # ‖p‖² of a cut leaf from the gathered one; the Newton step's first
+    # pass takes every other leaf's
     pn2 = {keys: sum(torch.sum(torch.square(get(full, keys, q).float()))
-                     for q in idx[keys]) for keys, _ in refs}
+                     for q in idx[keys]) for keys in cut}
     copies = 2 if beta > 0.0 else 1
     buf, views, P = m.flat(params, device, copies,
                            N + (len(refs) if beta > 0.0 else 0))
@@ -705,7 +713,8 @@ def _train_step_mesh(params, state, batch, step, masks, loss_fn, cfg, m):
     with span("ranl.exchange", device=device,
               op="all_reduce:" + "+".join(m.plane)):
         m.coll.all_reduce(buf, m.plane)
-    g = {key: v.to(get(params, *key).dtype) for key, v in gv.items()}
+    g = rebuild(params, lambda keys, layer: gv[keys, layer].to(
+        get(params, keys, layer).dtype))
     hsum = {}
     if hparts is not None:
         hsum = dict(zip(cut, hparts.sum(dim=0)))
@@ -719,45 +728,38 @@ def _train_step_mesh(params, state, batch, step, masks, loss_fn, cfg, m):
                 hsum[keys] = ((1.0 - beta) * hsum[keys]
                               + beta * buf[copies * P + N + r] / N)
 
-    def deltas(keys):
-        hs = [get(precond, keys, q) for q in idx[keys]]
-        n = sum(h.numel() for h in hs)
-        mean_h = (hsum[keys] / (n * m.n_model) if keys in hsum
-                  else sum(h.sum() for h in hs) / n)
-        floor = cfg.mu + cfg.mu_rel * mean_h
-        return [cfg.lr * g[keys, q].float() / torch.maximum(h, floor)
-                for q, h in zip(idx[keys], hs)]
+    groups, (ps, gs, hs) = _groups(params, params, g, precond)
+    on_model = [j for j, (keys, _) in enumerate(groups) if keys in hsum]
+    model_gn2 = []
+
+    def over_model(stats):
+        """‖Δ‖² and ‖g‖² of the cut leaves: one small all-reduce over
+        "model"."""
+        if not on_model:
+            return
+        small = torch.stack([stats[j, 1] for j in on_model]
+                            + [sum(stats[j, 3] for j in on_model)])
+        with span("ranl.exchange", device=device, op="all_reduce:model"):
+            m.coll.all_reduce(small, MODEL)
+        for i, j in enumerate(on_model):
+            stats[j, 1] = small[i]
+        model_gn2.append(small[-1])
 
     with span("ranl.newton", device=device):
-        # ‖Δ‖² and ‖g‖² of the cut leaves: one small all-reduce over
-        # "model"
-        dn2 = {keys: sum(torch.sum(torch.square(d)) for d in deltas(keys))
-               for keys, _ in refs}
-        gn2 = {key: torch.sum(torch.square(v.float()))
-               for key, v in g.items()}
-        gn2_rep = sum(v for key, v in gn2.items() if key[0] not in hsum)
-        if hsum:
-            small = torch.stack([dn2[keys] for keys in cut]
-                                + [sum(v for key, v in gn2.items()
-                                       if key[0] in hsum)])
-            with span("ranl.exchange", device=device,
-                      op="all_reduce:model"):
-                m.coll.all_reduce(small, MODEL)
-            dn2.update(zip(cut, small[:-1]))
-            gn2_rep = gn2_rep + small[-1]
-        new = {}
-        for keys, _ in refs:
-            scale = torch.clamp_max(
-                cfg.trust_ratio * (torch.sqrt(pn2[keys]) + 1.0)
-                / torch.clamp_min(torch.sqrt(dn2[keys]), 1e-20), 1.0)
-            for q, d in zip(idx[keys], deltas(keys)):
-                p = get(params, keys, q)
-                new[keys, q] = (p.float() - scale * d).to(p.dtype)
+        new, stats = ops.newton_step(
+            ps, gs, hs, lr=cfg.lr, mu=cfg.mu, mu_rel=cfg.mu_rel,
+            trust=cfg.trust_ratio,
+            hsum=[(hsum[keys], sum(h.numel() for h in hg) * m.n_model)
+                  if keys in hsum else None
+                  for (keys, _), hg in zip(groups, hs)],
+            pn2=[pn2.get(keys) for keys, _ in groups], between=over_model)
+    gn2 = sum(stats[j, 3] for j in range(len(groups))
+              if j not in on_model) + sum(model_gn2)
     m.coll.round = saved
-    metrics = {"loss": losses.mean(), "grad_norm": torch.sqrt(gn2_rep),
+    metrics = {"loss": losses.mean(), "grad_norm": torch.sqrt(gn2),
                "coverage": _f32_mean(masks.any(dim=0)),
                "uplink_frac": _f32_mean(masks)}
-    return (rebuild(params, lambda keys, layer: new[keys, layer]),
+    return (_ungroup(params, groups, new),
             {"step": state["step"] + 1, "precond": precond,
              "memory": rebuild(params, lambda keys, layer:
                                C_new[keys, layer])},

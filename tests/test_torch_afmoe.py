@@ -330,7 +330,9 @@ def test_one_round_equals_the_plain_round():
     # the round's parts, as train_step runs them
     _, G = ranl_llm.per_worker_grads(loss_fn, params, b1, n)
     g, _, _ = ranl_llm.aggregate(G, state["memory"], masks, params, rcfg)
-    new = ranl_llm.newton_step(params, g, state["precond"], rcfg)
+    new, gnorm = ranl_llm.newton_step(params, g, state["precond"], rcfg)
+    torch.testing.assert_close(gnorm, torch.sqrt(sum(
+        torch.sum(torch.square(x)) for x in leaves(g))), rtol=1e-6, atol=0)
     memory = {p: t.clone() for p, t in rranl.flatten(state["memory"]).items()}
     want_new, _, want_g = rranl.round_(afmoe, cfg, flat, got_h, memory, b1,
                                        masks, RCFG)

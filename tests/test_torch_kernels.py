@@ -806,7 +806,8 @@ def test_build_names_each_library_by_its_source_and_needs_nvcc(monkeypatch):
     paths = {name: build.library_path(name) for name in build.SOURCES}
     assert set(paths) == {"flash_attention", "flash_attention_bwd",
                           "rwkv_wkv", "rwkv_wkv_bwd", "chol_update",
-                          "masked_aggregate", "grouped_matmul"}
+                          "masked_aggregate", "grouped_matmul",
+                          "newton_step"}
     for name, path in paths.items():
         assert path.parent == build.BUILD_DIR
         assert path.name.startswith(name + "-") and path.suffix == ".so"
